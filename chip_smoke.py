@@ -18,18 +18,38 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      within ``BF16_MAX_ULPS`` of the float32 product rounded once to
      bf16, which a kernel that accumulates in bf16 fails;
   4. histogram kernel against its plain version, exact, plus times;
-  5. the main path: ``repro_torch.core.main.main(["run", ...])`` over
-     the example, mxu and histo scopes, with the kernels' launch counts
-     set to 0 just before and read just after.  Every scope must load
-     and be enabled, every instance must have a record without error and
-     with ``compile_time_s``, and both kernels must have launched;
-  6. one ``{"kernels": [...]}`` line: per kernel its launches on the main
+  5. flash-attention kernel against its plain version (``naive_attention``)
+     at the nn scope's shapes, a ragged one and the attention of
+     llama3.2-1b and internlm2-1.8b at 4096 tokens in bf16, with the
+     reference's tolerances, plus times (``torch.nn.functional.
+     scaled_dot_product_attention`` is the library yardstick);
+  6. rmsnorm kernel against its plain version at the nn scope's shapes, a
+     ragged one and llama3.2-1b's width (and 8192) in bf16, plus times
+     (``torch.nn.functional.rms_norm`` is the yardstick);
+  7. SSD chunk kernel against its plain version, and ``ssd`` (kernel plus
+     the inter-chunk recurrence in torch) against the sequential
+     ``ssd_reference`` for ``y`` and the final state, at the nn scope's
+     shapes, a ragged one and mamba2-780m's SSD layer; no single torch
+     call computes it, so its library time is null;
+  8. the main path: ``repro_torch.core.main.main(["run", ...])`` over
+     the example, mxu, histo and nn scopes, with the kernels' launch
+     counts set to 0 just before and read just after.  Every scope must
+     load and be enabled, every instance must have a record without
+     error and with ``compile_time_s``, and all five kernels must have
+     launched;
+  9. one ``{"kernels": [...]}`` line: per kernel its launches on the main
      path, its largest error against the plain version, and its time,
      the plain version's, the library call's and the card's bound, at
      the main path's largest shape (every shape under ``shapes``).
      ``ms`` is the time per call of back-to-back calls through the
      wrapper (CUDA events), ``device_ms`` the kernel alone (profiler);
-  7. last line: ``{"ok": true, "device": {...}}``.
+ 10. last line: ``{"ok": true, "device": {...}}``.
+
+Every comparison holds the kernel to its plain version on the same
+inputs with ``atol = rtol = tol``, ``tol`` being the reference's own
+(tests/test_kernels.py): a relative term is needed where a bf16 output
+of magnitude above 4 rounds one ulp (over 2e-2) away when the float32
+sums differ in their last bit.
 """
 import json
 import math
@@ -43,6 +63,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.core.sysinfo import target_hardware  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -51,6 +72,15 @@ from repro_torch.kernels.histogram import ops as histogram_ops  # noqa: E402
 from repro_torch.kernels.matmul import (bf16_ulp_error, matmul,  # noqa: E402
                                         matmul_ref)
 from repro_torch.kernels.matmul import ops as matmul_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_ref)
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import (ssd, ssd_chunk,  # noqa: E402
+                                          ssd_chunk_ref, ssd_chunked,
+                                          ssd_reference)
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 
 #: The reference's tolerances (tests/test_kernels.py): atol = rtol.
 MATMUL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-1}
@@ -75,6 +105,31 @@ HISTOGRAM_SHAPES = [(n, b, False) for n in (1 << 16, 1 << 20, (1 << 20) + 3,
 #: reports at its top level.
 MATMUL_HEADLINE = (torch.bfloat16, (1024, 1024, 1024))
 HISTOGRAM_HEADLINE = (1 << 20, 4096, False)
+
+#: The reference's tolerances for the nn kernels (tests/test_kernels.py).
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 4e-2}
+RMSNORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+SSD_TOL = 3e-5
+#: (dtype, B, S, H, K, D, causal): the nn scope's flash_attention_cuda
+#: rows, a ragged length without the causal mask, llama3.2-1b (32 heads,
+#: 8 kv heads, head size 64) and internlm2-1.8b (16, 8, 128) at 4096.
+FLASH_SHAPES = (
+    [(torch.float32, 2, S, 4, 2, 64, True) for S in (256, 512, 1024)]
+    + [(torch.float32, 2, 1000, 4, 2, 64, False),
+       (torch.bfloat16, 1, 4096, 32, 8, 64, True),
+       (torch.bfloat16, 1, 4096, 16, 8, 128, True)])
+FLASH_HEADLINE = FLASH_SHAPES[2]
+#: (dtype, rows, d): the nn scope's rmsnorm rows, a ragged shape,
+#: llama3.2-1b's d_model and the widest d the Pallas kernel took.
+RMSNORM_SHAPES = [(torch.float32, 4096, 1024), (torch.float32, 4096, 4096),
+                  (torch.bfloat16, 1000, 1000),
+                  (torch.bfloat16, 4096, 2048), (torch.bfloat16, 4096, 8192)]
+RMSNORM_HEADLINE = RMSNORM_SHAPES[1]
+#: (b, l, h, p, n, chunk): the nn scope's ssd_scan_cuda rows, ragged
+#: widths, and mamba2-780m's SSD layer (48 heads of 64, state 128).
+SSD_SHAPES = [(2, 1024, 4, 64, 64, 128), (2, 4096, 4, 64, 64, 128),
+              (1, 384, 3, 24, 40, 128), (1, 4096, 48, 64, 128, 128)]
+SSD_HEADLINE = SSD_SHAPES[1]
 
 
 def log(msg: str) -> None:
@@ -152,6 +207,32 @@ def phase_build() -> None:
                 log(f"  {name}: {line.strip()}")
 
 
+def check_close(what, got, want, tol) -> float:
+    """Largest absolute difference; raises past ``atol = rtol = tol``."""
+    err = (got.float() - want.float()).abs().max().item() \
+        if got.numel() else 0.0
+    try:
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+    except AssertionError as e:
+        raise AssertionError(f"{what}: {e}") from None
+    return err
+
+
+def bound(hw, nbytes, ops, dtype) -> dict:
+    """The least time for ``nbytes`` moved and ``ops`` done at the
+    card's peak for ``dtype``: ``bound_ms`` and what bounds it."""
+    peak = hw["peak_bf16_flops"] if dtype == torch.bfloat16 \
+        else hw["peak_fp32_flops"]
+    t_ops, t_bytes = ops / peak, nbytes / hw["hbm_bandwidth"]
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def dname(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
 def phase_matmul(hw: dict) -> dict:
     gen = torch.Generator("cuda").manual_seed(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -161,12 +242,9 @@ def phase_matmul(hw: dict) -> dict:
              / math.sqrt(K)).to(dtype)
         y = torch.randn((K, N), generator=gen, device="cuda").to(dtype)
         out = matmul(x, y)
-        ref = matmul_ref(x, y)
-        torch.cuda.synchronize()
         tol = MATMUL_TOL[dtype]
-        err = (out.float() - ref.float()).abs().max().item()
-        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
-                                   rtol=tol)
+        err = check_close(f"matmul {dtype} {M}x{K}x{N}", out,
+                          matmul_ref(x, y), tol)
         ulps = None
         if dtype == torch.bfloat16:
             ulps = bf16_ulp_error(out, x, y)
@@ -174,21 +252,15 @@ def phase_matmul(hw: dict) -> dict:
                 raise AssertionError(
                     f"matmul bf16 {M}x{K}x{N}: {ulps} ulps from the "
                     f"float32 product rounded once (limit {BF16_MAX_ULPS})")
-        itemsize = x.element_size()
-        flops = 2.0 * M * N * K
-        nbytes = (M * K + K * N + M * N) * itemsize
-        peak = hw["peak_bf16_flops"] if dtype == torch.bfloat16 \
-            else hw["peak_fp32_flops"]
-        t_ops, t_bytes = flops / peak, nbytes / hw["hbm_bandwidth"]
         row = {
-            "dtype": str(dtype).replace("torch.", ""), "M": M, "K": K, "N": N,
+            "dtype": dname(dtype), "M": M, "K": K, "N": N,
             "max_abs_err": err, "tol": tol, "max_ulp_err": ulps,
             "ms": time_ms(lambda: matmul(x, y)),
             "device_ms": device_ms(lambda: matmul(x, y), "matmul_kernel"),
             "plain_ms": time_ms(lambda: matmul_ref(x, y)),
             "library_ms": time_ms(lambda: torch.matmul(x, y)),
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            **bound(hw, (M * K + K * N + M * N) * x.element_size(),
+                    2.0 * M * N * K, dtype),
         }
         ulp_note = "" if ulps is None else f" ulps {ulps:.3g}"
         log(f"matmul {row['dtype']} {M}x{K}x{N}: max_abs_err {err:.3g} "
@@ -218,7 +290,6 @@ def phase_histogram(hw: dict) -> dict:
         if not torch.equal(out, ref):
             raise AssertionError(f"histogram n={n} bins={bins}: kernel "
                                  f"differs from plain (max {err})")
-        nbytes = (n + bins) * 4
         row = {
             "n": n, "bins": bins, "out_of_range": out_of_range,
             "max_abs_err": err, "tol": 0,
@@ -228,8 +299,7 @@ def phase_histogram(hw: dict) -> dict:
             "plain_ms": time_ms(lambda: histogram_ref(x, bins)),
             "library_ms": (None if out_of_range else time_ms(
                 lambda: torch.bincount(x, minlength=bins))),
-            "bound_ms": nbytes / hw["hbm_bandwidth"] * 1e3,
-            "bound_by": "bytes",
+            **bound(hw, (n + bins) * 4, 0.0, torch.int32),
         }
         lib = "n/a" if row["library_ms"] is None \
             else f"{row['library_ms']:.4f} ms"
@@ -243,6 +313,144 @@ def phase_histogram(hw: dict) -> dict:
                      "src/repro/kernels/histogram/kernel.py:29",
                      "src/repro/kernels/histogram/kernel.py::histogram_pallas",
                      shapes, HISTOGRAM_HEADLINE)
+
+
+def phase_flash(hw: dict) -> dict:
+    gen = torch.Generator("cuda").manual_seed(0)
+    shapes = []
+    for key in FLASH_SHAPES:
+        dtype, B, S, H, K, D, causal = key
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   for shape in ((B, S, H, D), (B, S, K, D), (B, S, K, D)))
+        tol = FLASH_TOL[dtype]
+        err = check_close(f"flash_attention {key}",
+                          flash_attention(q, k, v, causal=causal),
+                          flash_attention_ref(q, k, v, causal=causal), tol)
+        # (query, key) pairs the mask keeps: what the work depends on
+        pairs = S * (S + 1) // 2 if causal else S * S
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        row = {
+            "dtype": dname(dtype), "B": B, "S": S, "H": H, "K": K, "D": D,
+            "causal": causal, "max_abs_err": err, "tol": tol,
+            "ms": time_ms(lambda: flash_attention(q, k, v, causal=causal)),
+            "device_ms": device_ms(
+                lambda: flash_attention(q, k, v, causal=causal),
+                "flash_attention_kernel"),
+            "plain_ms": time_ms(
+                lambda: flash_attention_ref(q, k, v, causal=causal)),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=H != K)),
+            **bound(hw, 2 * (q.numel() + k.numel()) * q.element_size(),
+                    4.0 * B * H * D * pairs, dtype),
+        }
+        log(f"flash_attention {row['dtype']} B={B} S={S} H={H} K={K} D={D}"
+            f" causal={causal}: max_abs_err {err:.3g} (tol {tol}) kernel "
+            f"{row['ms']:.4f} ms (device {fmt_ms(row['device_ms'])}) plain "
+            f"{row['plain_ms']:.4f} ms sdpa {row['library_ms']:.4f} ms "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        shapes.append((key, row))
+    return summarize(
+        "flash_attention",
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:70",
+        "src/repro/kernels/flash_attention/kernel.py::flash_attention_pallas",
+        shapes, FLASH_HEADLINE)
+
+
+def phase_rmsnorm(hw: dict) -> dict:
+    gen = torch.Generator("cuda").manual_seed(0)
+    shapes = []
+    for key in RMSNORM_SHAPES:
+        dtype, rows, d = key
+        x = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
+        s = torch.randn((d,), generator=gen, device="cuda") + 1.0
+        tol = RMSNORM_TOL[dtype]
+        err = check_close(f"rmsnorm {key}", rmsnorm(x, s), rmsnorm_ref(x, s),
+                          tol)
+        # the library call takes its weight in x's type (a mixed pair is
+        # not fused); the cast is made once, outside the timing
+        s_lib = s.to(dtype)
+        row = {
+            "dtype": dname(dtype), "rows": rows, "d": d, "max_abs_err": err,
+            "tol": tol,
+            "ms": time_ms(lambda: rmsnorm(x, s)),
+            "device_ms": device_ms(lambda: rmsnorm(x, s), "rmsnorm_kernel"),
+            "plain_ms": time_ms(lambda: rmsnorm_ref(x, s)),
+            "library_ms": time_ms(
+                lambda: F.rms_norm(x, (d,), s_lib, 1e-6)),
+            **bound(hw, 2 * x.numel() * x.element_size() + 4 * d,
+                    4.0 * rows * d, dtype),
+        }
+        log(f"rmsnorm {row['dtype']} {rows}x{d}: max_abs_err {err:.3g} "
+            f"(tol {tol}) kernel {row['ms']:.4f} ms (device "
+            f"{fmt_ms(row['device_ms'])}) plain {row['plain_ms']:.4f} ms "
+            f"F.rms_norm {row['library_ms']:.4f} ms bound "
+            f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+        shapes.append((key, row))
+    return summarize("rmsnorm",
+                     "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+                     "src/repro/kernels/rmsnorm/kernel.py:24",
+                     "src/repro/kernels/rmsnorm/kernel.py::rmsnorm_pallas",
+                     shapes, RMSNORM_HEADLINE)
+
+
+def phase_ssd(hw: dict) -> dict:
+    gen = torch.Generator("cuda").manual_seed(0)
+    shapes = []
+    for key in SSD_SHAPES:
+        b, l, h, p, n, Q = key
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        x = randn(b, l, h, p) * 0.4
+        dt = F.softplus(randn(b, l, h))
+        A = -torch.exp(randn(h) * 0.3)
+        Bm, Cm = randn(b, l, 1, n) * 0.3, randn(b, l, 1, n) * 0.3
+        D = torch.ones(h, device="cuda")
+        B0, C0 = Bm[:, :, 0], Cm[:, :, 0]
+        got = ssd_chunk(x, dt, A, B0, C0, chunk=Q)
+        want = ssd_chunk_ref(x, dt, A, B0, C0, chunk=Q)
+        err = max(check_close(f"ssd_chunk {key} {part}", g, w, SSD_TOL)
+                  for part, g, w in zip(("y", "states", "ecs"), got, want))
+        y, state = ssd(x, dt, A, Bm, Cm, D, chunk=Q)
+        y_ref, state_ref = ssd_reference(x, dt, A, Bm, Cm, D)
+        err = max(err, check_close(f"ssd {key} y", y, y_ref, SSD_TOL),
+                  check_close(f"ssd {key} state", state, state_ref, SSD_TOL))
+        nc = l // Q
+        tri = Q * (Q + 1) // 2
+        # C.B once per (batch, chunk), shared by the heads; y and the
+        # chunk state per head
+        ops = 2.0 * (b * nc * tri * n + b * nc * h * (tri * p + Q * p * n))
+        nbytes = 4 * (2 * x.numel() + 2 * dt.numel() + A.numel()
+                      + 2 * B0.numel() + got[1].numel())
+        row = {
+            "b": b, "l": l, "h": h, "p": p, "n": n, "chunk": Q,
+            "max_abs_err": err, "tol": SSD_TOL,
+            "ms": time_ms(lambda: ssd_chunk(x, dt, A, B0, C0, chunk=Q)),
+            "device_ms": device_ms(
+                lambda: ssd_chunk(x, dt, A, B0, C0, chunk=Q),
+                "ssd_chunk_kernel"),
+            "plain_ms": time_ms(
+                lambda: ssd_chunk_ref(x, dt, A, B0, C0, chunk=Q)),
+            "library_ms": None,
+            "ssd_ms": time_ms(lambda: ssd(x, dt, A, Bm, Cm, D, chunk=Q)),
+            "ssd_chunked_ms": time_ms(
+                lambda: ssd_chunked(x, dt, A, Bm, Cm, D, chunk=Q)),
+            **bound(hw, nbytes, ops, torch.float32),
+        }
+        log(f"ssd_chunk b={b} l={l} h={h} p={p} n={n} chunk={Q}: "
+            f"max_abs_err {err:.3g} (tol {SSD_TOL}) kernel {row['ms']:.4f}"
+            f" ms (device {fmt_ms(row['device_ms'])}) plain "
+            f"{row['plain_ms']:.4f} ms library none bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); whole ssd "
+            f"{row['ssd_ms']:.4f} ms, ssd_chunked {row['ssd_chunked_ms']:.4f}"
+            f" ms")
+        shapes.append((key, row))
+    return summarize("ssd_scan",
+                     "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan/kernel.py:50",
+                     "src/repro/kernels/ssd_scan/kernel.py::ssd_chunk_pallas",
+                     shapes, SSD_HEADLINE)
 
 
 def summarize(name, source, replaces, function, shapes, headline) -> dict:
@@ -260,6 +468,12 @@ def summarize(name, source, replaces, function, shapes, headline) -> dict:
     }
 
 
+#: Each kernel's wrapper module, whose ``launches`` the main path reads.
+KERNEL_OPS = {"matmul": matmul_ops, "histogram": histogram_ops,
+              "flash_attention": flash_ops, "rmsnorm": rmsnorm_ops,
+              "ssd_scan": ssd_ops}
+
+
 def expected_instances() -> list:
     """Every instance the three scopes register, from a fresh registry."""
     from repro_torch.core.flags import FlagRegistry
@@ -275,18 +489,17 @@ def expected_instances() -> list:
 
 def phase_main_path() -> dict:
     from repro_torch.core.main import main
-    scopes = ["example", "mxu", "histo"]
+    scopes = ["example", "mxu", "histo", "nn"]
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "run.json")
         argv = ["run"] + [a for s in scopes for a in ("--enable-scope", s)] \
             + ["--benchmark_min_time", "0.05", "--benchmark_out", out]
-        matmul_ops.launches = 0
-        histogram_ops.launches = 0
+        for ops in KERNEL_OPS.values():
+            ops.launches = 0
         t0 = time.perf_counter()
         rc = main(argv)
         torch.cuda.synchronize()
-        launches = {"matmul": matmul_ops.launches,
-                    "histogram": histogram_ops.launches}
+        launches = {name: ops.launches for name, ops in KERNEL_OPS.items()}
         wall = time.perf_counter() - t0
         if rc != 0:
             raise AssertionError(f"main path exited {rc}")
@@ -315,7 +528,7 @@ def phase_main_path() -> dict:
     log(f"main path: {len(records)} records from {', '.join(scopes)} in "
         f"{wall:.1f} s on {ctx['device_kind']}; launches {launches}")
     for name, r in records.items():
-        if name.startswith(("mxu/", "histo/")):
+        if name.startswith(("mxu/", "histo/", "nn/")):
             log(f"  {name}: {r['real_time']:.3f} {r['time_unit']} "
                 f"(compile {r['compile_time_s']:.3f} s)")
     return launches
@@ -324,7 +537,8 @@ def phase_main_path() -> dict:
 def main() -> int:
     hw = phase_device()
     phase_build()
-    kernels = [phase_matmul(hw), phase_histogram(hw)]
+    kernels = [phase_matmul(hw), phase_histogram(hw), phase_flash(hw),
+               phase_rmsnorm(hw), phase_ssd(hw)]
     launches = phase_main_path()
     for k in kernels:
         k["launches"] = launches[k["name"]]

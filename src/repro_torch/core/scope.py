@@ -41,6 +41,7 @@ BUILTIN_SCOPES = [
     "repro_torch.scopes.example_scope",
     "repro_torch.scopes.mxu_scope",
     "repro_torch.scopes.histo_scope",
+    "repro_torch.scopes.nn_scope",
 ]
 
 

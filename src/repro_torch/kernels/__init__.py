@@ -7,7 +7,8 @@ use), ``ops.py`` (the public wrapper, registered as a
 and takes the plain version for a CPU tensor) and ``ref.py`` (the plain
 PyTorch version the tests and ``chip_smoke.py`` hold the kernel to).
 
-They replace the JAX package's Pallas TPU kernels of the same names:
-``matmul`` carries the mxu scope (TCU|Scope), ``histogram`` the histo
-scope (Histo|Scope).
+They replace the JAX package's five Pallas TPU kernels of the same
+names: ``matmul`` carries the mxu scope (TCU|Scope), ``histogram`` the
+histo scope (Histo|Scope), and ``flash_attention``, ``rmsnorm`` and
+``ssd_scan`` (the Mamba2 SSD chunk kernel) the nn scope (cuDNN|Scope).
 """

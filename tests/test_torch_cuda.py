@@ -12,8 +12,16 @@ import torch
 
 from repro_torch.kernels.histogram import histogram, histogram_ref
 from repro_torch.kernels.histogram import ops as histogram_ops
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_ref)
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.matmul import bf16_ulp_error, matmul, matmul_ref
 from repro_torch.kernels.matmul import ops as matmul_ops
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
+from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
+from repro_torch.kernels.ssd_scan import (ssd, ssd_chunk, ssd_chunk_ref,
+                                          ssd_reference)
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -60,8 +68,87 @@ def test_histogram_kernel_matches_plain(cuda, n, bins):
     assert torch.equal(out, histogram_ref(x, bins))
 
 
+@pytest.mark.parametrize("B,Sq,Sk,H,K,D", [
+    (2, 128, 128, 4, 2, 32), (2, 64, 64, 2, 2, 64), (2, 256, 256, 4, 1, 16),
+    (1, 100, 100, 4, 2, 128), (2, 37, 70, 4, 4, 64), (1, 70, 37, 2, 1, 32),
+    (1, 1, 1, 1, 1, 16)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 4e-2)])
+def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, K, D,
+                                              causal, dtype, tol):
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(
+        cuda, dtype) for s in ((B, Sq, H, D), (B, Sk, K, D), (B, Sk, K, D)))
+    before = flash_ops.launches
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(
+        out.float(), flash_attention_ref(q, k, v, causal=causal).float(),
+        atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("rows,d", [(64, 128), (256, 512), (32, 1024),
+                                    (4096, 1024), (7, 1000), (3, 8192)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype, tol):
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((rows, d), np.float32))
+    s = torch.from_numpy(rng.standard_normal(d, np.float32) + 1.0)
+    x, s = x.to(cuda, dtype), s.to(cuda)
+    before = rmsnorm_ops.launches
+    out = rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert rmsnorm_ops.launches == before + 1
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float(), rmsnorm_ref(x, s).float(),
+                               atol=tol, rtol=tol)
+
+
+def _ssd_operands(b, l, h, p, n, device):
+    rng = np.random.default_rng(0)
+    f = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa: E731
+    x = f(rng.standard_normal((b, l, h, p)) * 0.4)
+    dt = f(np.log1p(np.exp(rng.standard_normal((b, l, h)))))
+    A = f(-np.exp(rng.standard_normal(h) * 0.3))
+    Bm = f(rng.standard_normal((b, l, 1, n)) * 0.3)
+    Cm = f(rng.standard_normal((b, l, 1, n)) * 0.3)
+    return x, dt, A, Bm, Cm, f(np.ones(h))
+
+
+@pytest.mark.parametrize("b,l,h,p,n,chunk", [
+    (2, 32, 2, 8, 16, 8), (2, 64, 3, 8, 16, 16), (2, 128, 1, 8, 16, 32),
+    (2, 1024, 4, 64, 64, 128), (1, 256, 2, 64, 128, 128),
+    (1, 96, 2, 24, 40, 96)])
+def test_ssd_kernel_matches_plain(cuda, b, l, h, p, n, chunk):
+    x, dt, A, Bm, Cm, D = _ssd_operands(b, l, h, p, n, cuda)
+    before = ssd_ops.launches
+    got = ssd_chunk(x, dt, A, Bm[:, :, 0], Cm[:, :, 0], chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == before + 1
+    want = ssd_chunk_ref(x, dt, A, Bm[:, :, 0], Cm[:, :, 0], chunk=chunk)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=3e-5, rtol=3e-5)
+    y, s = ssd(x, dt, A, Bm, Cm, D, chunk=chunk)
+    yr, sr = ssd_reference(x, dt, A, Bm, Cm, D)
+    torch.testing.assert_close(y, yr, atol=3e-5, rtol=3e-5)
+    torch.testing.assert_close(s, sr, atol=3e-5, rtol=3e-5)
+
+
 def test_kernels_reject_what_they_cannot_take(cuda):
     x = torch.ones((64, 64), device=cuda)
+    q = torch.ones((1, 8, 2, 48), device=cuda)
+    with pytest.raises(ValueError, match="head size"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="contiguous"):
+        rmsnorm(x.t(), torch.ones(64, device=cuda))
+    big = _ssd_operands(1, 512, 1, 64, 128, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_chunk(big[0], big[1], big[2], big[3][:, :, 0], big[4][:, :, 0],
+                  chunk=512)
     with pytest.raises(ValueError, match="contiguous"):
         matmul(x.t(), x)
     with pytest.raises(ValueError, match="shared memory"):

@@ -85,7 +85,7 @@ def test_slice_run_on_cpu_pairs_with_reference(tmp_path):
     ctx = port["context"]
     assert ctx["backend"] == "cpu" and ctx["allow_tf32"] is False
     assert ctx["scopes"] == {"example": "disabled", "mxu": "enabled",
-                             "histo": "enabled"}
+                             "histo": "enabled", "nn": "disabled"}
 
 
 def _families(mgr_cls, registry, flags, hooks, name):
