@@ -13,14 +13,19 @@ Phases, each of which fails the script (non-zero exit, traceback, no
   2. build — compiles every hand-written kernel from ``csrc/`` with
      ``nvcc`` (one process per source, all started together) into
      ``build/`` and prints the build seconds and ``ptxas`` resources;
+     then counts the tensor-core instructions (``HGMMA``, ``HMMA``) in
+     each library's ``cuobjdump -sass`` and fails if the matmul or the
+     flash-attention library has none;
   3. matmul kernel against its plain version on the card, f32 and bf16,
-     with the reference's tolerances, plus times.  bf16 is also held to
-     within ``BF16_MAX_ULPS`` of the float32 product rounded once to
-     bf16, which a kernel that accumulates in bf16 fails;
+     with the reference's tolerances, plus times and the variant each
+     shape took (``wgmma`` or ``simt``).  bf16 is also held to within
+     ``BF16_MAX_ULPS`` of the float32 product rounded once to bf16,
+     which a kernel that accumulates in bf16 fails;
   4. histogram kernel against its plain version, exact, plus times;
   5. flash-attention kernel against its plain version (``naive_attention``)
-     at the nn scope's shapes, a ragged one and the attention of
-     llama3.2-1b and internlm2-1.8b at 4096 tokens in bf16, with the
+     at the nn scope's shapes, ragged ones (f32 full, bf16 causal) and
+     the attention of llama3.2-1b and internlm2-1.8b at 4096 tokens in
+     bf16, with the
      reference's tolerances, plus times (``torch.nn.functional.
      scaled_dot_product_attention`` is the library yardstick);
   6. rmsnorm kernel against its plain version at the nn scope's shapes, a
@@ -35,10 +40,12 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      the example, mxu, histo and nn scopes, with the kernels' launch
      counts set to 0 just before and read just after.  Every scope must
      load and be enabled, every instance must have a record without
-     error and with ``compile_time_s``, and all five kernels must have
-     launched;
+     error and with ``compile_time_s``, all five kernels must have
+     launched, and the mxu scope's bf16 ``cuda`` rows must have gone
+     through matmul's ``wgmma`` variant;
   9. one ``{"kernels": [...]}`` line: per kernel its launches on the main
-     path, its largest error against the plain version, and its time,
+     path (with each variant's, for matmul and flash attention), its
+     largest error against the plain version, and its time,
      the plain version's, the library call's and the card's bound, at
      the main path's largest shape (every shape under ``shapes``).
      ``ms`` is the time per call of back-to-back calls through the
@@ -87,15 +94,18 @@ MATMUL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-1}
 #: bf16 output against the float32 product rounded once to bf16, in ulps
 #: (see ``bf16_ulp_error``): summation order moves a value by at most one.
 BF16_MAX_ULPS = 2.0
-#: (M, K, N) per dtype: the mxu scope's sizes, a ragged shape each way,
-#: and one large bf16 product.
+#: (M, K, N) per dtype: the mxu scope's sizes, a ragged shape each way
+#: (bf16: ``simt``, as N or K is odd), a ragged bf16 shape that TMA can
+#: load (``wgmma`` with ragged M and N tiles), llama3.2-1b's MLP
+#: up-projection at 4096 tokens, and one large square bf16 product.
 MATMUL_SHAPES = (
     [(torch.float32, s) for s in ((256, 256, 256), (512, 512, 512),
                                   (1024, 1024, 1024), (1000, 1536, 777),
                                   (1000, 777, 1536))]
     + [(torch.bfloat16, s) for s in ((256, 256, 256), (512, 512, 512),
                                      (1024, 1024, 1024), (1000, 1536, 777),
-                                     (1000, 777, 1536), (4096, 4096, 4096))])
+                                     (1000, 777, 1536), (1000, 1536, 776),
+                                     (4096, 2048, 8192), (4096, 4096, 4096))])
 #: (n, bins, out_of_range): the histo scope's grid, a ragged n, a large n,
 #: and inputs with values outside [0, bins).
 HISTOGRAM_SHAPES = [(n, b, False) for n in (1 << 16, 1 << 20, (1 << 20) + 3,
@@ -111,11 +121,14 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 4e-2}
 RMSNORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 SSD_TOL = 3e-5
 #: (dtype, B, S, H, K, D, causal): the nn scope's flash_attention_cuda
-#: rows, a ragged length without the causal mask, llama3.2-1b (32 heads,
-#: 8 kv heads, head size 64) and internlm2-1.8b (16, 8, 128) at 4096.
+#: rows, a ragged length without the causal mask, the same causal in bf16
+#: at llama3.2-1b's heads (TMA fills the sequence's edge with zeros),
+#: llama3.2-1b (32 heads, 8 kv heads, head size 64) and internlm2-1.8b
+#: (16, 8, 128) at 4096.
 FLASH_SHAPES = (
     [(torch.float32, 2, S, 4, 2, 64, True) for S in (256, 512, 1024)]
     + [(torch.float32, 2, 1000, 4, 2, 64, False),
+       (torch.bfloat16, 1, 1000, 32, 8, 64, True),
        (torch.bfloat16, 1, 4096, 32, 8, 64, True),
        (torch.bfloat16, 1, 4096, 16, 8, 128, True)])
 FLASH_HEADLINE = FLASH_SHAPES[2]
@@ -159,11 +172,11 @@ def time_ms(fn, target_s: float = 0.05, max_reps: int = 2000) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel: str, calls: int = 20):
-    """Mean device time of the CUDA kernel whose name holds ``kernel``,
-    from a ``torch.profiler`` trace of ``calls`` calls: the kernel alone,
-    without the host's launch path.  None when the trace shows no such
-    kernel."""
+def device_ms(fn, kernels, calls: int = 20):
+    """Mean device time of the CUDA kernels whose names hold one of
+    ``kernels`` (a kernel's variants), from a ``torch.profiler`` trace of
+    ``calls`` calls: the kernel alone, without the host's launch path.
+    None when the trace shows no such kernel."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -171,10 +184,24 @@ def device_ms(fn, kernel: str, calls: int = 20):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    found = [e for e in prof.key_averages() if kernel in e.key]
+    found = [e for e in prof.key_averages()
+             if any(k in e.key for k in kernels)]
     count = sum(e.count for e in found)
     return sum(e.device_time_total for e in found) / count / 1e3 \
         if count else None
+
+
+#: Profiler names of each variant of the matmul and flash kernels.
+MATMUL_KERNELS = ("matmul_simt_kernel", "matmul_wgmma_kernel")
+FLASH_KERNELS = ("flash_attention_simt_kernel", "flash_attention_wgmma_kernel")
+
+
+def variant_of(ops, before: dict) -> str:
+    """The variant that the one call since ``before`` launched."""
+    ran = [v for v, n in ops.launches_by_variant.items() if n != before[v]]
+    if len(ran) != 1:
+        raise AssertionError(f"one launch expected, variants {ran}")
+    return ran[0]
 
 
 def fmt_ms(t) -> str:
@@ -195,7 +222,11 @@ def phase_device() -> dict:
     return dict(target_hardware(name))
 
 
-def phase_build() -> None:
+#: Kernels whose library must hold tensor-core instructions.
+TENSOR_CORE_KERNELS = ("matmul", "flash_attention")
+
+
+def phase_build() -> dict:
     names = _build.kernel_names()
     t0 = time.perf_counter()
     logs = _build.build(names)
@@ -203,8 +234,29 @@ def phase_build() -> None:
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if ("registers" in line or "spill" in line or "smem" in line
+                    or "Compiling entry" in line or "warning" in line):
                 log(f"  {name}: {line.strip()}")
+    return phase_sass(names)
+
+
+def phase_sass(names) -> dict:
+    """Tensor-core instructions in each library's SASS: ``HGMMA`` (the
+    warpgroup ``wgmma``) and ``HMMA`` (warp ``mma.sync``)."""
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    counts = {}
+    for name in names:
+        sass = subprocess.run(
+            [cuobjdump, "-sass", str(_build.library_path(name))],
+            capture_output=True, text=True, timeout=300, check=True).stdout
+        counts[name] = {op: sum(1 for line in sass.splitlines()
+                                if f" {op}." in line or f" {op} " in line)
+                        for op in ("HGMMA", "HMMA")}
+    log(f"sass tensor-core instructions: {counts}")
+    for name in TENSOR_CORE_KERNELS:
+        if not any(counts[name].values()):
+            raise AssertionError(f"{name}: no HGMMA or HMMA in its library")
+    return counts
 
 
 def check_close(what, got, want, tol) -> float:
@@ -241,7 +293,9 @@ def phase_matmul(hw: dict) -> dict:
         x = (torch.randn((M, K), generator=gen, device="cuda")
              / math.sqrt(K)).to(dtype)
         y = torch.randn((K, N), generator=gen, device="cuda").to(dtype)
+        before = dict(matmul_ops.launches_by_variant)
         out = matmul(x, y)
+        variant = variant_of(matmul_ops, before)
         tol = MATMUL_TOL[dtype]
         err = check_close(f"matmul {dtype} {M}x{K}x{N}", out,
                           matmul_ref(x, y), tol)
@@ -254,16 +308,18 @@ def phase_matmul(hw: dict) -> dict:
                     f"float32 product rounded once (limit {BF16_MAX_ULPS})")
         row = {
             "dtype": dname(dtype), "M": M, "K": K, "N": N,
+            "variant": variant,
             "max_abs_err": err, "tol": tol, "max_ulp_err": ulps,
             "ms": time_ms(lambda: matmul(x, y)),
-            "device_ms": device_ms(lambda: matmul(x, y), "matmul_kernel"),
+            "device_ms": device_ms(lambda: matmul(x, y), MATMUL_KERNELS),
             "plain_ms": time_ms(lambda: matmul_ref(x, y)),
             "library_ms": time_ms(lambda: torch.matmul(x, y)),
             **bound(hw, (M * K + K * N + M * N) * x.element_size(),
                     2.0 * M * N * K, dtype),
         }
         ulp_note = "" if ulps is None else f" ulps {ulps:.3g}"
-        log(f"matmul {row['dtype']} {M}x{K}x{N}: max_abs_err {err:.3g} "
+        log(f"matmul {row['dtype']} {M}x{K}x{N} ({variant}): max_abs_err "
+            f"{err:.3g} "
             f"(tol {tol}){ulp_note} kernel {row['ms']:.4f} ms (device "
             f"{fmt_ms(row['device_ms'])}) plain "
             f"{row['plain_ms']:.4f} ms torch.matmul {row['library_ms']:.4f} "
@@ -295,7 +351,7 @@ def phase_histogram(hw: dict) -> dict:
             "max_abs_err": err, "tol": 0,
             "ms": time_ms(lambda: histogram(x, bins)),
             "device_ms": device_ms(lambda: histogram(x, bins),
-                                   "histogram_kernel"),
+                                   ("histogram_kernel",)),
             "plain_ms": time_ms(lambda: histogram_ref(x, bins)),
             "library_ms": (None if out_of_range else time_ms(
                 lambda: torch.bincount(x, minlength=bins))),
@@ -323,19 +379,22 @@ def phase_flash(hw: dict) -> dict:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                    for shape in ((B, S, H, D), (B, S, K, D), (B, S, K, D)))
         tol = FLASH_TOL[dtype]
-        err = check_close(f"flash_attention {key}",
-                          flash_attention(q, k, v, causal=causal),
+        before = dict(flash_ops.launches_by_variant)
+        out = flash_attention(q, k, v, causal=causal)
+        variant = variant_of(flash_ops, before)
+        err = check_close(f"flash_attention {key}", out,
                           flash_attention_ref(q, k, v, causal=causal), tol)
         # (query, key) pairs the mask keeps: what the work depends on
         pairs = S * (S + 1) // 2 if causal else S * S
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         row = {
             "dtype": dname(dtype), "B": B, "S": S, "H": H, "K": K, "D": D,
-            "causal": causal, "max_abs_err": err, "tol": tol,
+            "causal": causal, "variant": variant, "max_abs_err": err,
+            "tol": tol,
             "ms": time_ms(lambda: flash_attention(q, k, v, causal=causal)),
             "device_ms": device_ms(
                 lambda: flash_attention(q, k, v, causal=causal),
-                "flash_attention_kernel"),
+                FLASH_KERNELS),
             "plain_ms": time_ms(
                 lambda: flash_attention_ref(q, k, v, causal=causal)),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
@@ -344,7 +403,7 @@ def phase_flash(hw: dict) -> dict:
                     4.0 * B * H * D * pairs, dtype),
         }
         log(f"flash_attention {row['dtype']} B={B} S={S} H={H} K={K} D={D}"
-            f" causal={causal}: max_abs_err {err:.3g} (tol {tol}) kernel "
+            f" causal={causal} ({variant}): max_abs_err {err:.3g} (tol {tol}) kernel "
             f"{row['ms']:.4f} ms (device {fmt_ms(row['device_ms'])}) plain "
             f"{row['plain_ms']:.4f} ms sdpa {row['library_ms']:.4f} ms "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
@@ -374,7 +433,8 @@ def phase_rmsnorm(hw: dict) -> dict:
             "dtype": dname(dtype), "rows": rows, "d": d, "max_abs_err": err,
             "tol": tol,
             "ms": time_ms(lambda: rmsnorm(x, s)),
-            "device_ms": device_ms(lambda: rmsnorm(x, s), "rmsnorm_kernel"),
+            "device_ms": device_ms(lambda: rmsnorm(x, s),
+                                   ("rmsnorm_kernel",)),
             "plain_ms": time_ms(lambda: rmsnorm_ref(x, s)),
             "library_ms": time_ms(
                 lambda: F.rms_norm(x, (d,), s_lib, 1e-6)),
@@ -429,7 +489,7 @@ def phase_ssd(hw: dict) -> dict:
             "ms": time_ms(lambda: ssd_chunk(x, dt, A, B0, C0, chunk=Q)),
             "device_ms": device_ms(
                 lambda: ssd_chunk(x, dt, A, B0, C0, chunk=Q),
-                "ssd_chunk_kernel"),
+                ("ssd_chunk_kernel",)),
             "plain_ms": time_ms(
                 lambda: ssd_chunk_ref(x, dt, A, B0, C0, chunk=Q)),
             "library_ms": None,
@@ -472,6 +532,8 @@ def summarize(name, source, replaces, function, shapes, headline) -> dict:
 KERNEL_OPS = {"matmul": matmul_ops, "histogram": histogram_ops,
               "flash_attention": flash_ops, "rmsnorm": rmsnorm_ops,
               "ssd_scan": ssd_ops}
+#: Wrappers with variants of their own (``launches_by_variant``).
+VARIANT_OPS = {"matmul": matmul_ops, "flash_attention": flash_ops}
 
 
 def expected_instances() -> list:
@@ -496,10 +558,15 @@ def phase_main_path() -> dict:
             + ["--benchmark_min_time", "0.05", "--benchmark_out", out]
         for ops in KERNEL_OPS.values():
             ops.launches = 0
+        for ops in VARIANT_OPS.values():
+            ops.launches_by_variant = dict.fromkeys(
+                ops.launches_by_variant, 0)
         t0 = time.perf_counter()
         rc = main(argv)
         torch.cuda.synchronize()
         launches = {name: ops.launches for name, ops in KERNEL_OPS.items()}
+        by_variant = {name: dict(ops.launches_by_variant)
+                      for name, ops in VARIANT_OPS.items()}
         wall = time.perf_counter() - t0
         if rc != 0:
             raise AssertionError(f"main path exited {rc}")
@@ -525,23 +592,36 @@ def phase_main_path() -> dict:
     for kernel, count in launches.items():
         if count == 0:
             raise AssertionError(f"the main path never launched {kernel}")
+    # the mxu scope's bf16 cuda rows (n = 256..1024, fresh aligned
+    # operands) are its only bf16 products: they take the tensor cores
+    mxu_bf16 = [n for n in records
+                if n.startswith("mxu/") and "backend:cuda" in n
+                and "dtype:bf16" in n]
+    if not mxu_bf16 or by_variant["matmul"]["wgmma"] == 0:
+        raise AssertionError(f"mxu bf16 cuda rows {mxu_bf16} did not go "
+                             f"through matmul's wgmma variant: "
+                             f"{by_variant['matmul']}")
     log(f"main path: {len(records)} records from {', '.join(scopes)} in "
-        f"{wall:.1f} s on {ctx['device_kind']}; launches {launches}")
+        f"{wall:.1f} s on {ctx['device_kind']}; launches {launches}; by "
+        f"variant {by_variant}")
     for name, r in records.items():
         if name.startswith(("mxu/", "histo/", "nn/")):
             log(f"  {name}: {r['real_time']:.3f} {r['time_unit']} "
                 f"(compile {r['compile_time_s']:.3f} s)")
-    return launches
+    return launches, by_variant
 
 
 def main() -> int:
     hw = phase_device()
-    phase_build()
+    sass = phase_build()
     kernels = [phase_matmul(hw), phase_histogram(hw), phase_flash(hw),
                phase_rmsnorm(hw), phase_ssd(hw)]
-    launches = phase_main_path()
+    launches, by_variant = phase_main_path()
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k["sass"] = sass[k["name"]]
+        if k["name"] in by_variant:
+            k["launches_by_variant"] = by_variant[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,13 @@
 Each kernel's source is ``kernels/<name>/csrc/<name>.cu`` with a plain C
 interface.  It is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library under the checkout's ``build/`` directory and loaded with
-``ctypes``.  The library's file name carries a hash of the source and
-the flags, so an edited source rebuilds and an unchanged one is loaded
-as it is.  Nothing here runs at import time: the CPU tests import every
-module on a host without ``nvcc``.
+``ctypes``.  Sources include the shared Hopper helpers as
+``"_hopper/hopper.cuh"`` (``kernels/`` is on the include path).  The
+library's file name carries a hash of the source, the headers it may
+include (every ``*.cuh`` beside it and under ``kernels/_hopper/``) and
+the flags, so an edited source or header rebuilds and an unchanged one
+is loaded as it is.  Nothing here runs at import time: the CPU tests
+import every module on a host without ``nvcc``.
 """
 from __future__ import annotations
 
@@ -40,9 +43,20 @@ def source(name: str) -> Path:
     return KERNELS_DIR / name / "csrc" / f"{name}.cu"
 
 
+def headers(name: str) -> List[Path]:
+    """The headers a kernel's source may include: the shared Hopper
+    helpers and any ``*.cuh`` in its own ``csrc/``."""
+    return sorted([*(KERNELS_DIR / "_hopper").glob("*.cuh"),
+                   *source(name).parent.glob("*.cuh")])
+
+
 def library_path(name: str) -> Path:
-    """``build/<name>-<hash>.so``: the hash covers the source and flags."""
+    """``build/<name>-<hash>.so``: the hash covers the source, its
+    headers and the flags."""
     h = hashlib.sha1(source(name).read_bytes())
+    for header in headers(name):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -63,7 +77,8 @@ def nvcc() -> str:
 
 
 def nvcc_command(name: str, out: Path) -> List[str]:
-    return [nvcc(), *NVCC_FLAGS, "-o", str(out), str(source(name))]
+    return [nvcc(), *NVCC_FLAGS, "-I", str(KERNELS_DIR), "-o", str(out),
+            str(source(name))]
 
 
 def build(names: Sequence[str]) -> Dict[str, str]:

@@ -6,7 +6,10 @@ Pallas kernel ``flash_attention_pallas``).  A CUDA tensor launches the
 CUDA kernel or raises; a CPU tensor takes the plain version in
 ``ref.py``.  There is no other fallback.  The kernel picks its own tiles
 and masks ragged sequence edges, so there are no ``bq``/``bk`` knobs
-(the reference wrapper clamped them to the head counts).
+(the reference wrapper clamped them to the head counts).  On the card
+it has two variants of its own, chosen by :func:`variant`: the tensor
+cores fed by TMA for bfloat16 (``"wgmma"``) and the CUDA cores for
+float32 (``"simt"``).
 """
 import ctypes
 import math
@@ -16,8 +19,10 @@ import torch
 from .. import _build
 from .ref import flash_attention_ref
 
-#: Kernel launches made by this process (read by ``chip_smoke.py``).
+#: Kernel launches made by this process (read by ``chip_smoke.py``),
+#: in all and by variant.
 launches = 0
+launches_by_variant = {"wgmma": 0, "simt": 0}
 
 #: Head sizes the kernel is instantiated for.
 HEAD_DIMS = (16, 32, 64, 128)
@@ -25,11 +30,20 @@ HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GRID_YZ = 65535
 _INT_MAX = 2 ** 31 - 1
 
-_SYMBOLS = {torch.float32: "flash_attention_f32",
-            torch.bfloat16: "flash_attention_bf16"}
+_SYMBOLS = {("simt", torch.float32): "flash_attention_f32",
+            ("simt", torch.bfloat16): "flash_attention_bf16_simt",
+            ("wgmma", torch.bfloat16): "flash_attention_bf16"}
 _SIGNATURES = {sym: [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                + [ctypes.c_float, ctypes.c_void_p]
                for sym in _SYMBOLS.values()}
+
+
+def variant(dtype: torch.dtype, Sk: int) -> str:
+    """The kernel variant a CUDA call takes: ``"wgmma"`` (tensor cores,
+    TMA loads) for bfloat16 with keys, else ``"simt"`` (CUDA cores:
+    float32, where TF32 would miss its 2e-5, and bfloat16 with Sk == 0,
+    which has no tile to load and gives zeros)."""
+    return "wgmma" if dtype == torch.bfloat16 and Sk > 0 else "simt"
 
 
 def _launch(q, k, v, causal: bool) -> torch.Tensor:
@@ -39,14 +53,19 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    which = variant(q.dtype, Sk)
+    if which == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: bfloat16 operands must start on "
+                         "16 bytes (the kernel's TMA loads)")
     lib = _build.load("flash_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = getattr(lib, _SYMBOLS[q.dtype])(
+        code = getattr(lib, _SYMBOLS[which, q.dtype])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, Sq, Sk, H, K, D, int(causal), 1.0 / math.sqrt(D), stream)
     _build.check(lib, code, "flash_attention")
     launches += 1
+    launches_by_variant[which] += 1
     return out
 
 
@@ -73,6 +92,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (float32 or bfloat16), contiguous, on one device; D in
     :data:`HEAD_DIMS`; any Sq and Sk.  The causal mask keeps ``k_pos <=
     q_pos``, both counted from 0.  Returns ``[B,Sq,H,D]`` in q's dtype.
+    On the card, bfloat16 operands must start on 16 bytes (a view at an
+    odd offset raises ``ValueError``); float32 takes any contiguous one.
     """
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
@@ -89,7 +110,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head size {D}; the kernel "
                          f"takes {HEAD_DIMS}")
-    if q.dtype not in _SYMBOLS or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in (torch.float32, torch.bfloat16) or \
+            k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
                         f"{v.dtype}; want all float32 or all bfloat16")
     if not (q.device == k.device == v.device):

@@ -55,6 +55,50 @@ def test_matmul_kernel_matches_plain(cuda, m, k, n, dtype, tol):
         assert bf16_ulp_error(out, x, y) <= 2.0
 
 
+def _matmul_operands(m, k, n, dtype, device, offset=0):
+    """x [m,k] and y [k,n] from a seed; ``offset`` > 0 makes both views
+    start that many elements into their storage (a misaligned base)."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(m * k + offset, np.float32))
+    y = torch.from_numpy(rng.standard_normal(k * n + offset, np.float32))
+    x = (x / np.sqrt(max(k, 1))).to(device, dtype)[offset:].view(m, k)
+    y = y.to(device, dtype)[offset:].view(k, n)
+    return x, y
+
+
+@pytest.mark.parametrize("m,k,n,offset,want", [
+    (200, 72, 136, 0, "wgmma"),      # ragged M, N and K tiles
+    (1000, 1536, 776, 0, "wgmma"),
+    (128, 8, 8, 0, "wgmma"),         # one K step, 8 columns of a 64 box
+    (192, 200, 264, 0, "wgmma"),     # K a multiple of 8, not of 64
+    (256, 4096, 256, 0, "wgmma"),    # a long K: the sum stays float32
+    (200, 72, 136, 1, "simt"),       # bases 2 bytes past 16: no TMA
+    (64, 4096, 48, 0, "wgmma"),
+])
+def test_matmul_bf16_variants_match_plain(cuda, m, k, n, offset, want):
+    x, y = _matmul_operands(m, k, n, torch.bfloat16, cuda, offset)
+    assert matmul_ops.variant(m, k, n, x.dtype, x.data_ptr(),
+                              y.data_ptr()) == want
+    before = dict(matmul_ops.launches_by_variant)
+    out = matmul(x, y)
+    torch.cuda.synchronize()
+    assert matmul_ops.launches_by_variant[want] == before[want] + 1
+    torch.testing.assert_close(out.float(), matmul_ref(x, y).float(),
+                               atol=2e-1, rtol=2e-1)
+    assert bf16_ulp_error(out, x, y) <= 2.0
+
+
+@pytest.mark.parametrize("m,k,n,offset", [(1000, 4096, 520, 0),
+                                          (130, 70, 90, 1)])
+def test_matmul_f32_takes_any_operand(cuda, m, k, n, offset):
+    x, y = _matmul_operands(m, k, n, torch.float32, cuda, offset)
+    before = matmul_ops.launches_by_variant["simt"]
+    out = matmul(x, y)
+    torch.cuda.synchronize()
+    assert matmul_ops.launches_by_variant["simt"] == before + 1
+    torch.testing.assert_close(out, matmul_ref(x, y), atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.parametrize("n,bins", [(4096, 64), (8192, 256), (1024, 16),
                                     (1, 1), (100003, 4096), (5000, 40000)])
 def test_histogram_kernel_matches_plain(cuda, n, bins):
@@ -88,6 +132,62 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Sk, H, K, D,
     torch.testing.assert_close(
         out.float(), flash_attention_ref(q, k, v, causal=causal).float(),
         atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,K,D,causal", [
+    (1, 200, 200, 8, 8, 16, True),      # GQA ratio 1, ragged tiles
+    (2, 130, 300, 8, 4, 32, False),     # ratio 2, Sq != Sk
+    (1, 333, 129, 8, 2, 64, True),      # ratio 4, causal with Sq > Sk
+    (1, 129, 333, 4, 1, 128, True),     # causal with Sq < Sk
+    (2, 1000, 1000, 32, 8, 64, True),   # llama3.2-1b's heads, ragged
+    (1, 257, 257, 16, 8, 128, False),
+])
+def test_flash_attention_bf16_wgmma_matches_plain(cuda, B, Sq, Sk, H, K, D,
+                                                  causal):
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(
+        cuda, torch.bfloat16)
+        for s in ((B, Sq, H, D), (B, Sk, K, D), (B, Sk, K, D)))
+    assert flash_ops.variant(q.dtype, Sk) == "wgmma"
+    before = flash_ops.launches_by_variant["wgmma"]
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_ops.launches_by_variant["wgmma"] == before + 1
+    torch.testing.assert_close(
+        out.float(), flash_attention_ref(q, k, v, causal=causal).float(),
+        atol=4e-2, rtol=4e-2)
+
+
+def test_flash_attention_bf16_without_keys(cuda):
+    """No keys: nothing for TMA to load, so the CUDA-core body runs and
+    gives the reference's zeros."""
+    q = torch.ones((1, 5, 2, 16), device=cuda, dtype=torch.bfloat16)
+    k = torch.ones((1, 0, 1, 16), device=cuda, dtype=torch.bfloat16)
+    before = flash_ops.launches_by_variant["simt"]
+    out = flash_attention(q, k, k)
+    torch.cuda.synchronize()
+    assert flash_ops.launches_by_variant["simt"] == before + 1
+    assert torch.equal(out, flash_attention_ref(q, k, k))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, None)])
+def test_flash_attention_misaligned_operands(cuda, dtype, tol):
+    """bf16 goes through TMA, which needs 16-byte bases: a view that
+    starts one element in is refused.  The float32 body takes it."""
+    rng = np.random.default_rng(2)
+    shape = (1, 70, 4, 32)
+    n = int(np.prod(shape))
+    q, k, v = (torch.from_numpy(rng.standard_normal(n + 1, np.float32)).to(
+        cuda, dtype)[1:].view(shape) for _ in range(3))
+    if tol is None:
+        with pytest.raises(ValueError, match="16 bytes"):
+            flash_attention(q, k, v)
+        return
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, flash_attention_ref(q, k, v),
+                               atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("rows,d", [(64, 128), (256, 512), (32, 1024),

@@ -187,6 +187,10 @@ def build_root(tmp_path, monkeypatch):
         csrc = tmp_path / "kernels" / name / "csrc"
         csrc.mkdir(parents=True)
         (csrc / f"{name}.cu").write_bytes(_build.source(name).read_bytes())
+    hopper = tmp_path / "kernels" / "_hopper"
+    hopper.mkdir()
+    (hopper / "hopper.cuh").write_bytes(
+        (_build.KERNELS_DIR / "_hopper" / "hopper.cuh").read_bytes())
     monkeypatch.setattr(_build, "KERNELS_DIR", tmp_path / "kernels")
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setenv("PATH", str(tmp_path / "bin"))
@@ -204,6 +208,9 @@ def test_build_compiles_for_sm90a_once_per_source(build_root):
     assert len(calls) == 2
     assert all("arch=compute_90a,code=sm_90a" in c and "-shared" in c
                for c in calls)
+    # the sources include "_hopper/hopper.cuh": kernels/ is on the path
+    assert all(f"-I {build_root / 'kernels'} " in c for c in calls)
+    assert _build.kernel_names() == ["histogram", "matmul"]
     libs = {_build.library_path(n) for n in ("matmul", "histogram")}
     assert all(p.exists() and p.parent == build_root / "build"
                for p in libs)
@@ -226,3 +233,48 @@ def test_build_failure_raises_with_compiler_output(build_root):
 def test_build_without_nvcc_raises(build_root):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(["matmul"])
+
+
+def test_library_path_follows_the_hopper_header(build_root):
+    """An edited shared header gets every kernel a new library name, so
+    no stale library is loaded; an unchanged one keeps the name."""
+    before = {n: _build.library_path(n) for n in ("matmul", "histogram")}
+    assert before == {n: _build.library_path(n) for n in before}
+    header = build_root / "kernels" / "_hopper" / "hopper.cuh"
+    assert _build.headers("matmul") == [header]
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build.library_path(n) for n in before}
+    assert all(after[n] != before[n] for n in before)
+    # a header beside one kernel's source moves only that kernel's name
+    (build_root / "kernels" / "matmul" / "csrc" / "tiles.cuh").write_text(
+        "#pragma once\n")
+    assert _build.library_path("matmul") != after["matmul"]
+    assert _build.library_path("histogram") == after["histogram"]
+
+
+_ALIGNED = 1 << 20   # a base on 16 bytes (the allocator gives 256)
+
+
+@pytest.mark.parametrize("m,k,n,dtype,x_ptr,y_ptr,want", [
+    (1024, 1024, 1024, torch.bfloat16, _ALIGNED, _ALIGNED, "wgmma"),
+    (1000, 1536, 776, torch.bfloat16, _ALIGNED, _ALIGNED, "wgmma"),
+    (128, 8, 8, torch.bfloat16, _ALIGNED, _ALIGNED, "wgmma"),
+    (1, 8, 8, torch.bfloat16, _ALIGNED + 16, _ALIGNED + 48, "wgmma"),
+    (1024, 1024, 1024, torch.float32, _ALIGNED, _ALIGNED, "simt"),
+    (65, 17, 128, torch.bfloat16, _ALIGNED, _ALIGNED, "simt"),   # K % 8
+    (1000, 1536, 777, torch.bfloat16, _ALIGNED, _ALIGNED, "simt"),  # N % 8
+    (300, 0, 8, torch.bfloat16, _ALIGNED, _ALIGNED, "simt"),     # K == 0
+    (200, 72, 136, torch.bfloat16, _ALIGNED + 2, _ALIGNED, "simt"),
+    (200, 72, 136, torch.bfloat16, _ALIGNED, _ALIGNED + 8, "simt"),
+])
+def test_matmul_variant(m, k, n, dtype, x_ptr, y_ptr, want):
+    assert matmul_ops.variant(m, k, n, dtype, x_ptr, y_ptr) == want
+
+
+def test_matmul_variant_counts_stay_on_the_cpu():
+    """A CPU product takes the plain version: no variant is counted."""
+    before = dict(matmul_ops.launches_by_variant)
+    matmul(torch.ones(16, 16, dtype=torch.bfloat16),
+           torch.ones(16, 16, dtype=torch.bfloat16))
+    assert matmul_ops.launches_by_variant == before
+    assert set(before) == {"wgmma", "simt"}

@@ -224,3 +224,13 @@ def test_nn_wrappers_are_custom_ops():
     for g, w in zip(got, ssd_chunk_ref(xs, dt, A, Bm[:, :, 0], Cm[:, :, 0],
                                        chunk=16)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype,Sk,want", [
+    (torch.bfloat16, 4096, "wgmma"), (torch.bfloat16, 1, "wgmma"),
+    (torch.bfloat16, 0, "simt"), (torch.float32, 4096, "simt"),
+    (torch.float32, 0, "simt")])
+def test_flash_attention_variant(dtype, Sk, want):
+    """bf16 with keys takes the tensor cores; float32 (TF32 would miss
+    2e-5) and a key-less call take the CUDA-core body."""
+    assert flash_ops.variant(dtype, Sk) == want
