@@ -14,20 +14,27 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      ``nvcc`` (one process per source, all started together) into
      ``build/`` and prints the build seconds and ``ptxas`` resources;
      then counts the tensor-core instructions (``HGMMA``, ``HMMA``) in
-     each library's ``cuobjdump -sass`` and fails if the matmul or the
-     flash-attention library has none;
+     each library's ``cuobjdump -sass`` and fails if matmul or flash
+     attention has no HGMMA (their bf16 ``wgmma`` variants); flash's
+     HMMA count is logged (its float32 body runs on the CUDA cores);
   3. matmul kernel against its plain version on the card, f32 and bf16,
      with the reference's tolerances, plus times and the variant each
      shape took (``wgmma`` or ``simt``).  bf16 is also held to within
      ``BF16_MAX_ULPS`` of the float32 product rounded once to bf16,
      which a kernel that accumulates in bf16 fails;
-  4. histogram kernel against its plain version, exact, plus times;
+  4. histogram kernel against its plain version, exact, plus times, at
+     the histo scope's shapes, a ragged and a large n, values out of
+     range, every value in one bin and a view one element into its
+     storage; each shape's cluster size and grid, and the global merges
+     that a model of the kernel's partition gives (logged only);
   5. flash-attention kernel against its plain version (``naive_attention``)
-     at the nn scope's shapes, ragged ones (f32 full, bf16 causal) and
-     the attention of llama3.2-1b and internlm2-1.8b at 4096 tokens in
-     bf16, with the
-     reference's tolerances, plus times (``torch.nn.functional.
-     scaled_dot_product_attention`` is the library yardstick);
+     at the nn scope's shapes, ragged ones (f32 full, bf16 causal), f32
+     at head size 128 and 4096 tokens, and the attention of llama3.2-1b
+     and internlm2-1.8b at 4096 tokens in bf16, with the reference's
+     tolerances, plus times (``torch.nn.functional.
+     scaled_dot_product_attention`` is the library yardstick).  Each
+     float32 shape is also held to 2e-5 with inputs x4 (scores of tens),
+     and carries the 3xTF32 tensor-core bound beside its CUDA-core one;
   6. rmsnorm kernel against its plain version at the nn scope's shapes, a
      ragged one and llama3.2-1b's width (and 8192) in bf16, plus times
      (``torch.nn.functional.rms_norm`` is the yardstick);
@@ -36,21 +43,30 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      ``ssd_reference`` for ``y`` and the final state, at the nn scope's
      shapes, a ragged one and mamba2-780m's SSD layer; no single torch
      call computes it, so its library time is null;
-  8. the main path: ``repro_torch.core.main.main(["run", ...])`` over
+  8. host path: each step of a histogram and a float32 flash wrapper
+     call (argument checks, custom_op dispatch, output allocation, device
+     and stream lookup, library lookup, the ctypes call, ``_build.check``)
+     timed alone over ``HOST_CALLS`` calls on the host clock;
+  9. the main path: ``repro_torch.core.main.main(["run", ...])`` over
      the example, mxu, histo and nn scopes, with the kernels' launch
      counts set to 0 just before and read just after.  Every scope must
      load and be enabled, every instance must have a record without
      error and with ``compile_time_s``, all five kernels must have
-     launched, and the mxu scope's bf16 ``cuda`` rows must have gone
-     through matmul's ``wgmma`` variant;
-  9. one ``{"kernels": [...]}`` line: per kernel its launches on the main
+     launched, the mxu scope's bf16 ``cuda`` rows must have gone
+     through matmul's ``wgmma`` variant and the nn scope's float32
+     flash rows through flash attention's ``ffma`` variant;
+ 10. the same main path again in a child process under
+     ``torch.profiler``: the device's idle share over its activity
+     window;
+ 11. a ``{"host_path_us": ..., "main_path_idle": ...}`` line, then one
+     ``{"kernels": [...]}`` line: per kernel its launches on the main
      path (with each variant's, for matmul and flash attention), its
      largest error against the plain version, and its time,
      the plain version's, the library call's and the card's bound, at
      the main path's largest shape (every shape under ``shapes``).
      ``ms`` is the time per call of back-to-back calls through the
-     wrapper (CUDA events), ``device_ms`` the kernel alone (profiler);
- 10. last line: ``{"ok": true, "device": {...}}``.
+     wrapper (CUDA events), ``device_ms`` the kernels alone (profiler);
+ 12. last line: ``{"ok": true, "device": {...}}``.
 
 Every comparison holds the kernel to its plain version on the same
 inputs with ``atol = rtol = tol``, ``tol`` being the reference's own
@@ -106,28 +122,33 @@ MATMUL_SHAPES = (
                                      (1024, 1024, 1024), (1000, 1536, 777),
                                      (1000, 777, 1536), (1000, 1536, 776),
                                      (4096, 2048, 8192), (4096, 4096, 4096))])
-#: (n, bins, out_of_range): the histo scope's grid, a ragged n, a large n,
-#: and inputs with values outside [0, bins).
-HISTOGRAM_SHAPES = [(n, b, False) for n in (1 << 16, 1 << 20, (1 << 20) + 3,
-                                            1 << 28)
-                    for b in (256, 4096)] + [((1 << 20) + 3, 4096, True)]
+#: (n, bins, case): the histo scope's grid, a ragged n and a large n of
+#: uniform values; values outside [0, bins); every value in one bin (the
+#: shared atomics' worst contention); and a view one element into its
+#: storage (a scalar head before the 16-byte loads).
+HISTOGRAM_SHAPES = [(n, b, "uniform") for n in (1 << 16, 1 << 20,
+                                                (1 << 20) + 3, 1 << 28)
+                    for b in (256, 4096)] + [
+    ((1 << 20) + 3, 4096, "out_of_range"), (1 << 20, 4096, "one_hot_bin"),
+    (1 << 20, 4096, "misaligned")]
 #: The main path's largest shape of each kernel: the one the kernels line
 #: reports at its top level.
 MATMUL_HEADLINE = (torch.bfloat16, (1024, 1024, 1024))
-HISTOGRAM_HEADLINE = (1 << 20, 4096, False)
+HISTOGRAM_HEADLINE = (1 << 20, 4096, "uniform")
 
 #: The reference's tolerances for the nn kernels (tests/test_kernels.py).
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 4e-2}
 RMSNORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 SSD_TOL = 3e-5
 #: (dtype, B, S, H, K, D, causal): the nn scope's flash_attention_cuda
-#: rows, a ragged length without the causal mask, the same causal in bf16
-#: at llama3.2-1b's heads (TMA fills the sequence's edge with zeros),
-#: llama3.2-1b (32 heads, 8 kv heads, head size 64) and internlm2-1.8b
-#: (16, 8, 128) at 4096.
+#: rows, a ragged length without the causal mask, float32 at head size
+#: 128 and 4096 tokens, the same causal in bf16 at llama3.2-1b's heads
+#: (TMA fills the sequence's edge with zeros), llama3.2-1b (32 heads, 8
+#: kv heads, head size 64) and internlm2-1.8b (16, 8, 128) at 4096.
 FLASH_SHAPES = (
     [(torch.float32, 2, S, 4, 2, 64, True) for S in (256, 512, 1024)]
     + [(torch.float32, 2, 1000, 4, 2, 64, False),
+       (torch.float32, 1, 4096, 4, 2, 128, True),
        (torch.bfloat16, 1, 1000, 32, 8, 64, True),
        (torch.bfloat16, 1, 4096, 32, 8, 64, True),
        (torch.bfloat16, 1, 4096, 16, 8, 128, True)])
@@ -173,27 +194,35 @@ def time_ms(fn, target_s: float = 0.05, max_reps: int = 2000) -> float:
 
 
 def device_ms(fn, kernels, calls: int = 20):
-    """Mean device time of the CUDA kernels whose names hold one of
-    ``kernels`` (a kernel's variants), from a ``torch.profiler`` trace of
-    ``calls`` calls: the kernel alone, without the host's launch path.
-    None when the trace shows no such kernel."""
+    """Device time per call of the CUDA kernels whose names hold one of
+    ``kernels`` (a kernel's variants and passes), from a
+    ``torch.profiler`` trace of ``calls`` calls: the kernels alone,
+    without the host's launch path.  None when the trace shows no such
+    kernel."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    found = [e for e in prof.key_averages()
-             if any(k in e.key for k in kernels)]
-    count = sum(e.count for e in found)
-    return sum(e.device_time_total for e in found) / count / 1e3 \
-        if count else None
+    for _ in range(3):   # a trace now and then comes back without kernels
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        found = [e for e in prof.key_averages()
+                 if any(k in e.key for k in kernels)]
+        if found:
+            return sum(e.device_time_total for e in found) / calls / 1e3
+    return None
 
 
-#: Profiler names of each variant of the matmul and flash kernels.
+#: Profiler names of each kernel's ``__global__`` functions (each
+#: variant's, and the ffma variant's combine pass): ``device_ms`` sums
+#: the kernels a call launches.
 MATMUL_KERNELS = ("matmul_simt_kernel", "matmul_wgmma_kernel")
-FLASH_KERNELS = ("flash_attention_simt_kernel", "flash_attention_wgmma_kernel")
+FLASH_KERNELS = ("flash_attention_wgmma_kernel", "flash_attention_ffma_kernel",
+                 "flash_attention_ffma_combine_kernel")
+HISTOGRAM_KERNELS = ("histogram_kernel",)
+RMSNORM_KERNELS = ("rmsnorm_kernel",)
+SSD_KERNELS = ("ssd_chunk_kernel",)
 
 
 def variant_of(ops, before: dict) -> str:
@@ -222,8 +251,9 @@ def phase_device() -> dict:
     return dict(target_hardware(name))
 
 
-#: Kernels whose library must hold tensor-core instructions.
-TENSOR_CORE_KERNELS = ("matmul", "flash_attention")
+#: Tensor-core instructions each library must hold: the bf16 ``wgmma``
+#: variants' HGMMA.
+TENSOR_CORE_OPS = {"matmul": ("HGMMA",), "flash_attention": ("HGMMA",)}
 
 
 def phase_build() -> dict:
@@ -252,10 +282,13 @@ def phase_sass(names) -> dict:
         counts[name] = {op: sum(1 for line in sass.splitlines()
                                 if f" {op}." in line or f" {op} " in line)
                         for op in ("HGMMA", "HMMA")}
-    log(f"sass tensor-core instructions: {counts}")
-    for name in TENSOR_CORE_KERNELS:
-        if not any(counts[name].values()):
-            raise AssertionError(f"{name}: no HGMMA or HMMA in its library")
+    log(f"sass tensor-core instructions: {counts}; flash_attention HMMA "
+        f"{counts['flash_attention']['HMMA']} (float32 runs on the CUDA "
+        f"cores: ffma)")
+    for name, ops in TENSOR_CORE_OPS.items():
+        for op in ops:
+            if counts[name][op] == 0:
+                raise AssertionError(f"{name}: no {op} in its library")
     return counts
 
 
@@ -331,44 +364,95 @@ def phase_matmul(hw: dict) -> dict:
                      shapes, MATMUL_HEADLINE)
 
 
+def histogram_input(n, bins, case, gen):
+    if case == "one_hot_bin":
+        return torch.full((n,), bins // 3, dtype=torch.int32, device="cuda")
+    lo, hi = (-(bins // 4), bins + bins // 4) if case == "out_of_range" \
+        else (0, bins)
+    extra = 1 if case == "misaligned" else 0
+    x = torch.randint(lo, hi, (n + extra,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    return x[extra:]
+
+
+def histogram_merges(x, bins, blocks, cluster) -> dict:
+    """A model, not a count on the device: the global atomics one call
+    would make (the non-zero (cluster, bin) sums), and what one merge per
+    block would make on the same grid, from a copy of the kernel's
+    partition: block 0 takes the scalar head and tail, and int4 j of the
+    aligned body goes to thread j mod (blocks * THREADS)."""
+    n, threads = x.numel(), histogram_ops.THREADS
+    head = min(n, (16 - x.data_ptr() % 16) % 16 // 4)
+    nvec = (n - head) // 4
+    i = torch.arange(n, device=x.device)
+    block = torch.where((i >= head) & (i < head + 4 * nvec),
+                        (i - head) // 4 % (blocks * threads) // threads, 0)
+    keep = (x >= 0) & (x < bins)
+    v, block = x[keep].long(), block[keep]
+    return {"merges": torch.unique(block // cluster * bins + v).numel(),
+            "merges_one_per_block": torch.unique(block * bins + v).numel()}
+
+
 def phase_histogram(hw: dict) -> dict:
     gen = torch.Generator("cuda").manual_seed(0)
+    lib = _build.load("histogram", histogram_ops._SIGNATURES)
     shapes = []
-    for n, bins, out_of_range in HISTOGRAM_SHAPES:
-        lo, hi = (-(bins // 4), bins + bins // 4) if out_of_range \
-            else (0, bins)
-        x = torch.randint(lo, hi, (n,), generator=gen, device="cuda",
-                          dtype=torch.int32)
+    for n, bins, case in HISTOGRAM_SHAPES:
+        x = histogram_input(n, bins, case, gen)
         out = histogram(x, bins)
         ref = histogram_ref(x, bins)
         torch.cuda.synchronize()
         err = (out.long() - ref.long()).abs().max().item()
         if not torch.equal(out, ref):
-            raise AssertionError(f"histogram n={n} bins={bins}: kernel "
-                                 f"differs from plain (max {err})")
+            raise AssertionError(f"histogram n={n} bins={bins} {case}: "
+                                 f"kernel differs from plain (max {err})")
+        cluster = histogram_ops.CLUSTER
+        blocks = histogram_ops.grid_size(
+            n, histogram_ops.max_clusters(lib, x.device.index, bins))
+        model = histogram_merges(x, bins, blocks, cluster)
         row = {
-            "n": n, "bins": bins, "out_of_range": out_of_range,
+            "n": n, "bins": bins, "case": case,
+            "out_of_range": case == "out_of_range",
+            "cluster": cluster, "blocks": blocks,
             "max_abs_err": err, "tol": 0,
             "ms": time_ms(lambda: histogram(x, bins)),
             "device_ms": device_ms(lambda: histogram(x, bins),
-                                   ("histogram_kernel",)),
+                                   HISTOGRAM_KERNELS),
             "plain_ms": time_ms(lambda: histogram_ref(x, bins)),
-            "library_ms": (None if out_of_range else time_ms(
+            "library_ms": (None if case == "out_of_range" else time_ms(
                 lambda: torch.bincount(x, minlength=bins))),
             **bound(hw, (n + bins) * 4, 0.0, torch.int32),
         }
-        lib = "n/a" if row["library_ms"] is None \
+        lib_ms = "n/a" if row["library_ms"] is None \
             else f"{row['library_ms']:.4f} ms"
-        log(f"histogram n={n} bins={bins}{' out-of-range' if out_of_range else ''}"
-            f": exact; kernel {row['ms']:.4f} ms (device "
-            f"{fmt_ms(row['device_ms'])}) plain {row['plain_ms']:.4f}"
-            f" ms torch.bincount {lib} bound {row['bound_ms']:.5f} ms")
-        shapes.append(((n, bins, out_of_range), row))
+        log(f"histogram n={n} bins={bins} {case}: exact; {blocks} blocks in "
+            f"clusters of {cluster}, {model['merges']} global merges by the "
+            f"model (one a block: {model['merges_one_per_block']}); kernel "
+            f"{row['ms']:.4f} ms (device {fmt_ms(row['device_ms'])}) plain "
+            f"{row['plain_ms']:.4f} ms torch.bincount {lib_ms} bound "
+            f"{row['bound_ms']:.5f} ms")
+        shapes.append(((n, bins, case), row))
     return summarize("histogram",
                      "src/repro_torch/kernels/histogram/csrc/histogram.cu",
                      "src/repro/kernels/histogram/kernel.py:29",
                      "src/repro/kernels/histogram/kernel.py::histogram_pallas",
                      shapes, HISTOGRAM_HEADLINE)
+
+
+def flash_f32_x4(key, q, k, v, variant) -> float:
+    """A float32 shape again with inputs x4 (scores of tens), through the
+    same variant and held to 2e-5 of the plain version like the rest."""
+    tol = FLASH_TOL[torch.float32]
+    causal = key[-1]
+    q4, k4, v4 = (t * 4 for t in (q, k, v))
+    before = dict(flash_ops.launches_by_variant)
+    out4 = flash_attention(q4, k4, v4, causal=causal)
+    if variant_of(flash_ops, before) != variant:
+        raise AssertionError(f"flash_attention {key} x4: another variant")
+    err = check_close(f"flash_attention {key} x4", out4,
+                      flash_attention_ref(q4, k4, v4, causal=causal), tol)
+    log(f"  x4: max_abs_err {err:.3g} (tol {tol})")
+    return err
 
 
 def phase_flash(hw: dict) -> dict:
@@ -407,6 +491,11 @@ def phase_flash(hw: dict) -> dict:
             f"{row['ms']:.4f} ms (device {fmt_ms(row['device_ms'])}) plain "
             f"{row['plain_ms']:.4f} ms sdpa {row['library_ms']:.4f} ms "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        if dtype == torch.float32:
+            row["x4_max_abs_err"] = flash_f32_x4(key, q, k, v, variant)
+            # three TF32 products a product on the tensor cores
+            row["bound_3xtf32_ms"] = 3 * 4.0 * B * H * D * pairs \
+                / hw["peak_tf32_flops"] * 1e3
         shapes.append((key, row))
     return summarize(
         "flash_attention",
@@ -434,7 +523,7 @@ def phase_rmsnorm(hw: dict) -> dict:
             "tol": tol,
             "ms": time_ms(lambda: rmsnorm(x, s)),
             "device_ms": device_ms(lambda: rmsnorm(x, s),
-                                   ("rmsnorm_kernel",)),
+                                   RMSNORM_KERNELS),
             "plain_ms": time_ms(lambda: rmsnorm_ref(x, s)),
             "library_ms": time_ms(
                 lambda: F.rms_norm(x, (d,), s_lib, 1e-6)),
@@ -489,7 +578,7 @@ def phase_ssd(hw: dict) -> dict:
             "ms": time_ms(lambda: ssd_chunk(x, dt, A, B0, C0, chunk=Q)),
             "device_ms": device_ms(
                 lambda: ssd_chunk(x, dt, A, B0, C0, chunk=Q),
-                ("ssd_chunk_kernel",)),
+                SSD_KERNELS),
             "plain_ms": time_ms(
                 lambda: ssd_chunk_ref(x, dt, A, B0, C0, chunk=Q)),
             "library_ms": None,
@@ -549,13 +638,20 @@ def expected_instances() -> list:
     return [name for b in mgr.registry.all() for name, _ in b.instances()]
 
 
+MAIN_SCOPES = ["example", "mxu", "histo", "nn"]
+
+
+def main_argv(out: str) -> list:
+    return ["run"] + [a for s in MAIN_SCOPES for a in ("--enable-scope", s)] \
+        + ["--benchmark_min_time", "0.05", "--benchmark_out", out]
+
+
 def phase_main_path() -> dict:
     from repro_torch.core.main import main
-    scopes = ["example", "mxu", "histo", "nn"]
+    scopes = MAIN_SCOPES
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "run.json")
-        argv = ["run"] + [a for s in scopes for a in ("--enable-scope", s)] \
-            + ["--benchmark_min_time", "0.05", "--benchmark_out", out]
+        argv = main_argv(out)
         for ops in KERNEL_OPS.values():
             ops.launches = 0
         for ops in VARIANT_OPS.values():
@@ -601,6 +697,13 @@ def phase_main_path() -> dict:
         raise AssertionError(f"mxu bf16 cuda rows {mxu_bf16} did not go "
                              f"through matmul's wgmma variant: "
                              f"{by_variant['matmul']}")
+    # the nn scope's flash_attention_cuda rows are float32 with keys:
+    # the ffma body
+    nn_flash = [n for n in records if n.startswith("nn/flash_attention_cuda")]
+    if not nn_flash or by_variant["flash_attention"]["ffma"] == 0:
+        raise AssertionError(f"nn flash rows {nn_flash} did not go through "
+                             f"flash attention's ffma variant: "
+                             f"{by_variant['flash_attention']}")
     log(f"main path: {len(records)} records from {', '.join(scopes)} in "
         f"{wall:.1f} s on {ctx['device_kind']}; launches {launches}; by "
         f"variant {by_variant}")
@@ -611,17 +714,169 @@ def phase_main_path() -> dict:
     return launches, by_variant
 
 
+#: Run in a child process (the scopes register once a process): the
+#: main path again under torch.profiler, CUDA activity only.  The union
+#: of the device's activity spans against the window they cover gives
+#: the device's idle share.
+_IDLE_CHILD = """
+import json, sys, tempfile, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.core.main import main
+with tempfile.TemporaryDirectory() as tmp:
+    argv = json.loads(sys.argv[2]) + ["--benchmark_out", tmp + "/run.json"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rc = main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA)
+busy, reach = 0, None
+for a, b in spans:
+    if reach is None or a > reach:
+        busy += b - a
+        reach = b
+    elif b > reach:
+        busy += b - reach
+        reach = b
+window = reach - spans[0][0] if spans else 0
+print(json.dumps({"rc": rc, "wall_s": wall, "device_spans": len(spans),
+                  "busy_s": busy / 1e9, "window_s": window / 1e9,
+                  "idle_share": 1 - busy / window if window else None}))
+"""
+
+
+def phase_idle_share() -> dict:
+    """The device's idle share over the main path (phase 8 run again,
+    profiled, in a child process: the profiler's own cost on the host
+    is in this run's wall, not in phase 8's records)."""
+    r = subprocess.run(
+        [sys.executable, "-c", _IDLE_CHILD, os.path.join(ROOT, "src"),
+         json.dumps(main_argv("")[:-2])],
+        capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"profiled main path failed: {r.stderr[-3000:]}")
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    if got["rc"] != 0 or not got["device_spans"]:
+        raise AssertionError(f"profiled main path: {got}")
+    log(f"main path under torch.profiler: wall {got['wall_s']:.1f} s, "
+        f"{got['device_spans']} device spans, busy {got['busy_s']:.3f} s of "
+        f"a {got['window_s']:.3f} s window: idle share "
+        f"{got['idle_share']:.4f}")
+    return got
+
+
+#: The host steps of one wrapper call, each timed alone over
+#: ``HOST_CALLS`` calls (host clock, the device synchronised at the end
+#: of each run).  Shapes whose device time stays below the host's, so
+#: that the launch queue never holds the host back.
+HOST_CALLS = 10000
+HOST_HISTOGRAM = (1 << 20, 4096)
+HOST_FLASH = (1, 64, 4, 2, 64)
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def phase_host_path() -> dict:
+    """Split a wrapper call's host time: the public function (argument
+    checks), the custom_op dispatch, and inside the launch function the
+    output allocation, the device and stream lookup, the library lookup,
+    the ctypes call (which enqueues the launches) and ``_build.check``."""
+    dev = torch.device("cuda", 0)
+
+    def lookup():
+        with torch.cuda.device(dev):
+            return torch.cuda.current_stream(dev).cuda_stream
+
+    n, bins = HOST_HISTOGRAM
+    x = torch.randint(0, bins, (n,), device=dev, dtype=torch.int32)
+    hlib = _build.load("histogram", histogram_ops._SIGNATURES)
+    fits = histogram_ops.max_clusters(hlib, 0, bins)
+    h_out = torch.empty(bins, dtype=torch.int32, device=dev)
+    h_args = (x.data_ptr(), n, h_out.data_ptr(), bins,
+              histogram_ops.grid_size(n, fits), lookup())
+    B, S, H, K, D = HOST_FLASH
+    q, k, v = (torch.randn(sh, device=dev) for sh in
+               ((B, S, H, D), (B, S, K, D), (B, S, K, D)))
+    flib = _build.load("flash_attention", flash_ops._SIGNATURES)
+    f_out = torch.empty_like(q)
+    part = torch.empty(flash_ops.FFMA_SPLITS * B * S * H * (D + 2),
+                       device=dev)
+    f_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), f_out.data_ptr(),
+              part.data_ptr(), B, S, S, H, K, D, 1, 1.0 / math.sqrt(D),
+              lookup())
+    ffma = getattr(flib, flash_ops._SYMBOLS["ffma", torch.float32])
+    steps = {
+        "histogram": {
+            "call": lambda: histogram(x, bins),
+            "op": lambda: torch.ops.repro_torch.histogram(x, bins),
+            "launch": lambda: histogram_ops._launch(x, bins),
+            "alloc": lambda: torch.empty(bins, dtype=torch.int32,
+                                         device=dev),
+            "lookup": lookup,
+            "load": lambda: _build.load("histogram",
+                                        histogram_ops._SIGNATURES),
+            "ctypes": lambda: hlib.histogram_i32(*h_args),
+            "check": lambda: _build.check(hlib, 0, "histogram")},
+        "flash_attention": {
+            "call": lambda: flash_attention(q, k, v),
+            "op": lambda: torch.ops.repro_torch.flash_attention(q, k, v,
+                                                                True),
+            "launch": lambda: flash_ops._launch(q, k, v, True),
+            "alloc": lambda: (torch.empty_like(q), torch.empty(
+                part.numel(), device=dev)),
+            "lookup": lookup,
+            "load": lambda: _build.load("flash_attention",
+                                        flash_ops._SIGNATURES),
+            "ctypes": lambda: ffma(*f_args),
+            "check": lambda: _build.check(flib, 0, "flash_attention")}}
+    split = {}
+    for name, fns in steps.items():
+        t = {step: host_us(fn) for step, fn in fns.items()}
+        split[name] = {
+            "us_per_call": t["call"],
+            "argument_checks": t["call"] - t["op"],
+            "custom_op_dispatch": t["op"] - t["launch"],
+            "output_allocation": t["alloc"],
+            "device_and_stream_lookup": t["lookup"],
+            "library_lookup": t["load"],
+            "ctypes_call": t["ctypes"],
+            "build_check": t["check"],
+            "rest_of_launch": t["launch"] - t["alloc"] - t["lookup"]
+            - t["load"] - t["ctypes"] - t["check"]}
+        log(f"host path {name} ({HOST_CALLS} calls each, us a call): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in split[name].items()))
+    return split
+
+
 def main() -> int:
     hw = phase_device()
     sass = phase_build()
     kernels = [phase_matmul(hw), phase_histogram(hw), phase_flash(hw),
                phase_rmsnorm(hw), phase_ssd(hw)]
+    host = phase_host_path()
     launches, by_variant = phase_main_path()
+    idle = phase_idle_share()
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["sass"] = sass[k["name"]]
         if k["name"] in by_variant:
             k["launches_by_variant"] = by_variant[k["name"]]
+    print(json.dumps({"host_path_us": host, "main_path_idle": idle}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

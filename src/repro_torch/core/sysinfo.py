@@ -29,12 +29,14 @@ from typing import Any, Dict, Mapping, Optional
 H100_SXM = types.MappingProxyType({
     "name": "h100_sxm",
     "peak_bf16_flops": 989e12,     # FLOP/s, tensor cores, dense
+    "peak_tf32_flops": 495e12,     # tensor cores, dense
     "peak_fp32_flops": 67e12,      # outside the tensor cores
     "hbm_bandwidth": 3.35e12,      # B/s
 })
 H100_PCIE = types.MappingProxyType({
     "name": "h100_pcie",
     "peak_bf16_flops": 756e12,
+    "peak_tf32_flops": 378e12,
     "peak_fp32_flops": 51e12,
     "hbm_bandwidth": 2.0e12,
 })

@@ -14,10 +14,16 @@
 // Bound on the card: 4 * D operations per (query, key) pair kept by the
 // mask against (2 * Sq * H + 2 * Sk * K) * D elements moved, so at the
 // sequence lengths of the nn scope and above it is bound by operations:
-// 989 TFLOP/s in bf16 on the tensor cores, 67 TFLOP/s in float32 on the
-// CUDA cores.  Hopper's blocks run in parallel and in no order, so the
-// TPU's sequential k grid becomes a loop inside each block, with m, l and
-// the output accumulator in registers across it.  Two variants:
+// 989 TFLOP/s in bf16 on the tensor cores; in float32 67 TFLOP/s on the
+// CUDA cores, or three TF32 products per product at 495 TFLOP/s on the
+// tensor cores (B2 S1024 H4 D64 causal: 1.07 GFLOP, 0.0160 ms on the CUDA
+// cores, 3 x 1.07 GFLOP = 0.0065 ms as 3xTF32).  Hopper's blocks run in
+// parallel and in no order, so the TPU's sequential k grid becomes a loop
+// inside each block, with m, l and the output accumulator in registers
+// across it.  ops.variant routes bf16 to wgmma and float32 to ffma.  A
+// call without keys (Sk == 0) has no tile to load: every row's weights
+// sum to 0, and either C entry writes the reference's zeros with one
+// cudaMemsetAsync instead of a launch.
 //
 // wgmma (bf16): the tensor cores, fed by TMA.  A block of 384 threads owns
 // 128 query rows of one (batch, head).  Warpgroup 0 is the producer: one
@@ -38,210 +44,50 @@
 // the causal key loop stops at the block's diagonal, and the heaviest
 // query blocks are launched first.
 //
-// simt (float32, and bf16 with no keys): the CUDA cores, float32
-// arithmetic.  One block of 256 threads owns 64 query rows of one (batch,
-// head).  The q tile stays in shared memory (transposed, float32); per
-// step the block stages a 32-key tile of k (transposed) and v.  Thread
-// (tx, ty) computes scores for rows ty + 16i and keys tx + 16j; a row's 16
-// threads are one half-warp, so the row max and row sum of the online
-// softmax are four xor-shuffles.  Probabilities go through shared memory
-// to the P.V product.  TF32 tensor cores would miss the reference's 2e-5,
-// and this body already beats the library's float32 attention, so float32
-// stays here.  A row whose keys are all masked (Sk == 0) has l == 0 and
-// gives zeros, the reference's guard.
+// ffma (float32): the CUDA cores, redesigned against what held the first
+// body (11 % of its bound at B2 S1024 H4 D64: 128 blocks of 8 warps for
+// 132 SMs, 4 x 2 scores a thread behind 6 shared loads per 8 fmaf, 32-key
+// steps through registers):
+//  - too few blocks (128 of 64 rows for 132 SMs there): each 64-row query
+//    tile is split into up to 4 key ranges (a multiple of 64 keys each),
+//    one block each, 320 busy blocks there; a range writes its (O, m, l)
+//    to scratch and a second, small kernel merges the ranges of the tiles
+//    that had several (a tile with one range writes its output itself);
+//  - the causal tail: the heaviest query tiles are launched first;
+//  - little arithmetic per shared load: a thread holds 8 queries x 8 keys
+//    of S and the same 8 rows x D/8 columns of O, and reads q, k, P^T and
+//    v with 16-byte loads: 24 loads per 256 fmaf in Q K^T;
+//  - loads not overlapped: cp.async (16 bytes, or 4 where an operand is
+//    not on 16 bytes; zeros past the end of the keys) double-buffers k,
+//    so tile t+1's k loads during all of tile t, and loads v t+1 into the
+//    one v buffer during tile t+1's Q K^T.  One v buffer and P^T over the
+//    consumed k stage keep a block at 69.6 KB for D = 64: three blocks of
+//    two warps an SM.
+// Each score is one fmaf chain over d in order from 0, the order of the
+// float32 reference's product: with inputs whose scores reach tens, where
+// float32 attention itself lies several times 2e-5 from the float64 one,
+// this body still holds 2e-5 against the reference.
+//
+// Why float32 is not on the tensor cores: one TF32 product keeps 11 bits
+// and misses the reference's 2e-5.  A 3xTF32 body was built and measured
+// on an H100 (PERF.md): each operand split as a = a_hi + a_lo, both
+// rounded by cvt.rna.tf32, a.b = a_lo.b_hi + a_hi.b_lo + a_hi.b_hi in
+// three mma.sync.m16n8k8.tf32, each key tile's P.V folded into O with
+// float32 adds (warp mma, not wgmma: TF32 wgmma takes B only K-major from
+// shared memory, and V is MN-major for P.V).  It held 2e-5 at unit-scale
+// inputs, but with inputs x4 it lay 4.4 to 12 tolerance units from the
+// reference: as close to the float64 attention as float32 is, in another
+// rounding.  tests/test_torch_tf32x3.py emulates its arithmetic.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <algorithm>
 #include <stdint.h>
 
 #include "_hopper/hopper.cuh"
 
 namespace {
-
-constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 32;         // keys per step
-constexpr int THREADS = 256;   // 16 x 16
-constexpr int TR = BQ / 16;    // query rows per thread
-constexpr int TC = BK / 16;    // keys per thread and step
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// reductions over the 16 lanes of a half-warp (one query row)
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (D * (BQ + 1) + D * (BK + 1) + BK * D + BQ * (BK + 1));
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_simt_kernel(const T* __restrict__ q,
-                            const T* __restrict__ k, const T* __restrict__ v,
-                            T* __restrict__ out, int Sq, int Sk, int H, int K,
-                            int causal, float scale) {
-  constexpr int DC = D / 16;   // output columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;                   // [D][BQ + 1] q tile, transposed
-  float* ks = qs + D * (BQ + 1);      // [D][BK + 1] k tile, transposed
-  float* vs = ks + D * (BK + 1);      // [BK][D]     v tile
-  float* ps = vs + BK * D;            // [BQ][BK + 1] probabilities
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kh = h / (H / K);
-  const size_t q_stride = static_cast<size_t>(H) * D;   // one position
-  const size_t kv_stride = static_cast<size_t>(K) * D;
-  const T* qb = q + (static_cast<size_t>(b) * Sq * H + h) * D;
-  const T* kb = k + (static_cast<size_t>(b) * Sk * K + kh) * D;
-  const T* vb = v + (static_cast<size_t>(b) * Sk * K + kh) * D;
-  T* ob = out + (static_cast<size_t>(b) * Sq * H + h) * D;
-
-  // consecutive threads read consecutive d of one position: coalesced
-  for (int e = tid; e < BQ * D; e += THREADS) {
-    const int r = e / D, c = e % D;
-    qs[c * (BQ + 1) + r] =
-        q0 + r < Sq ? to_float(qb[(q0 + r) * q_stride + c]) : 0.f;
-  }
-
-  float m[TR], l[TR], acc[TR][DC];
-#pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-
-  // causal: keys past the block's last query row are all masked
-  const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();   // the previous step's tiles are consumed
-    for (int e = tid; e < BK * D; e += THREADS) {
-      const int r = e / D, c = e % D;
-      const bool in = k0 + r < Sk;
-      const size_t off = (k0 + r) * kv_stride + c;
-      ks[c * (BK + 1) + r] = in ? to_float(kb[off]) : 0.f;
-      vs[r * D + c] = in ? to_float(vb[off]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[TR][TC];
-#pragma unroll
-    for (int i = 0; i < TR; ++i)
-#pragma unroll
-      for (int j = 0; j < TC; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < D; ++c) {
-      float a[TR], bk[TC];
-#pragma unroll
-      for (int i = 0; i < TR; ++i) a[i] = qs[c * (BQ + 1) + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TC; ++j) bk[j] = ks[c * (BK + 1) + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TR; ++i)
-#pragma unroll
-        for (int j = 0; j < TC; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < TR; ++i) {
-      const int qp = q0 + ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < TC; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        const bool keep = kp < Sk && (!causal || kp <= qp);
-        s[i][j] = keep ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      // a row with no unmasked key yet keeps p = 0 and corr = 0
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < TC; ++j) {
-        const float p = expf(s[i][j] - m_use);
-        ps[(ty + 16 * i) * (BK + 1) + tx + 16 * j] = p;
-        sum += p;
-      }
-      const float corr = expf(m[i] - m_use);
-      l[i] = l[i] * corr + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float vv[DC];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) vv[c] = vs[kk * D + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < TR; ++i) {
-        const float p = ps[(ty + 16 * i) * (BK + 1) + kk];
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    const int qp = q0 + ty + 16 * i;
-    if (qp >= Sq) continue;
-    const float li = l[i] == 0.f ? 1.f : l[i];
-#pragma unroll
-    for (int c = 0; c < DC; ++c)
-      ob[qp * q_stride + tx + 16 * c] = from_float<T>(acc[i][c] / li);
-  }
-}
-
-template <typename T, int D>
-int launch_simt(const void* q, const void* k, const void* v, void* out,
-                int B, int Sq, int Sk, int H, int K, int causal, float scale,
-                cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_simt_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attention_simt_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, K, causal,
-      scale);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ----------------------------------------------------------------- wgmma
 
@@ -520,17 +366,426 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------------ ffma
+
+// cp.async; a src_bytes of 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   hopper::smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   hopper::smem_u32(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stages positions [p0, p0 + rows) of one head of a [S, heads, D] operand
+// (`src` at position 0, `stride` floats a position) into a tile of row
+// stride `ld`, with zeros at positions >= `limit`.
+template <int D>
+__device__ __forceinline__ void stage_rows(float* dst, int ld,
+                                           const float* src, size_t stride,
+                                           int p0, int rows, int limit,
+                                           bool aligned) {
+  if (aligned) {
+    for (int e = threadIdx.x; e < rows * (D / 4); e += blockDim.x) {
+      const int r = e / (D / 4), c = 4 * (e % (D / 4));
+      const bool in = p0 + r < limit;
+      cp_async16(dst + r * ld + c, in ? src + (p0 + r) * stride + c : src,
+                 in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * D; e += blockDim.x) {
+      const int r = e / D, c = e % D;
+      const bool in = p0 + r < limit;
+      cp_async4(dst + r * ld + c, in ? src + (p0 + r) * stride + c : src,
+                in);
+    }
+  }
+}
+
+constexpr int F_BQ = 64;        // query rows per block
+constexpr int F_BKV = 64;       // keys per tile
+constexpr int F_THREADS = 64;   // 8 x 8 threads of 8 x 8 scores
+constexpr int F_SPLITS = 4;     // key ranges a query tile is split into
+
+template <int D>
+struct FfTiles {
+  // rows of q, k and v: 4 words mod 32, so that the 8 lanes of a
+  // quarter-warp reading 16 bytes of 8 consecutive rows hit 32 banks
+  static constexpr int LD = D + 4;
+  static constexpr int LP = F_BQ + 4;            // rows of P^T
+  static constexpr int V4 = D >= 32 ? 4 : 2;     // contiguous output columns
+  static constexpr int NC = D / 8 / V4;          // column groups a thread
+  static constexpr int Q_FLOATS = F_BQ * LD;
+  static constexpr int KV_FLOATS = F_BKV * LD;
+  static constexpr int P_FLOATS = F_BKV * LP;
+  // P^T overlays the consumed k tile where it fits (D >= 64)
+  static constexpr bool P_IN_K = KV_FLOATS >= P_FLOATS;
+  // q, two stages of k, one of v: 69.6 KB at D = 64, three blocks an SM
+  static constexpr int SMEM =
+      4 * (Q_FLOATS + 3 * KV_FLOATS + (P_IN_K ? 0 : P_FLOATS));
+};
+
+// the first key of each of a query tile's key ranges: a multiple of the
+// tile, so that no tile straddles two ranges
+inline int split_len(int Sk) {
+  const int per = (Sk + F_SPLITS - 1) / F_SPLITS;
+  return (per + F_BKV - 1) / F_BKV * F_BKV;
+}
+
+// max over the 8 lanes of a row (lane % 8 = tx)
+__device__ __forceinline__ float row8_max(float v) {
+#pragma unroll
+  for (int off = 1; off < 8; off <<= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+__device__ __forceinline__ float row8_sum(float v) {
+#pragma unroll
+  for (int off = 1; off < 8; off <<= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Thread (ty, tx) = (tid / 8, tid % 8) holds rows 4 ty + (i & 3) + 32 (i >>
+// 2) and keys tx + 8 j of the score tile (i, j < 8), and the same rows and
+// columns 8 V4 c + V4 tx + e of O.  Each score is one fmaf chain over d in
+// order from 0, the float32 reference's own order.
+template <int D>
+__global__ void __launch_bounds__(F_THREADS)
+flash_attention_ffma_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            float* __restrict__ out, float* __restrict__ part,
+                            int B, int Sq, int Sk, int H, int K, int causal,
+                            float scale, int L, int aligned) {
+  using Tl = FfTiles<D>;
+  constexpr int LD = Tl::LD, LP = Tl::LP, V4 = Tl::V4, NC = Tl::NC;
+  extern __shared__ float4 smem_ff[];
+  float* qs = reinterpret_cast<float*>(smem_ff);   // [F_BQ][LD]
+  float* ks = qs + Tl::Q_FLOATS;                    // [2][F_BKV][LD]
+  float* vs = ks + 2 * Tl::KV_FLOATS;               // [F_BKV][LD]
+  float* ps_own = vs + Tl::KV_FLOATS;               // [F_BKV][LP] if apart
+
+  // (query tile, batch and head, key range), heaviest query tiles first
+  const int nq = (Sq + F_BQ - 1) / F_BQ;
+  const int HB = H * B;
+  const int split = static_cast<int>(blockIdx.x) % F_SPLITS;
+  const int rest = static_cast<int>(blockIdx.x) / F_SPLITS;
+  const int qt = causal ? nq - 1 - rest / HB : rest / HB;
+  const int h = rest % HB % H;
+  const int b = rest % HB / H;
+  const int kh = h / (H / K);
+  const int q0 = qt * F_BQ;
+  const int k_end = causal ? min(Sk, q0 + F_BQ) : Sk;
+  const int nsplit = (k_end + L - 1) / L;
+  if (split >= nsplit) return;
+  const int kr0 = split * L;
+  const int ntiles = (min(k_end, kr0 + L) - kr0 + F_BKV - 1) / F_BKV;
+  const size_t q_stride = static_cast<size_t>(H) * D;
+  const size_t kv_stride = static_cast<size_t>(K) * D;
+  const float* qb = q + (static_cast<size_t>(b) * Sq * H + h) * D;
+  const float* kb = k + (static_cast<size_t>(b) * Sk * K + kh) * D;
+  const float* vb = v + (static_cast<size_t>(b) * Sk * K + kh) * D;
+
+  // cp.async groups in the order they are made: (q, k 0, v 0), k 1, then after each
+  // tile t's P.V: v t+1 (into the one v buffer), k t+2 (into t's stage);
+  // so k t+1 loads during all of tile t and v t+1 during tile t+1's Q K^T
+  stage_rows<D>(qs, LD, qb, q_stride, q0, F_BQ, Sq, aligned);
+  stage_rows<D>(ks, LD, kb, kv_stride, kr0, F_BKV, Sk, aligned);
+  stage_rows<D>(vs, LD, vb, kv_stride, kr0, F_BKV, Sk, aligned);
+  cp_async_commit();
+  if (ntiles > 1) {
+    stage_rows<D>(ks + Tl::KV_FLOATS, LD, kb, kv_stride, kr0 + F_BKV, F_BKV,
+                  Sk, aligned);
+    cp_async_commit();
+  }
+
+  const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
+  float o[8][D / 8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) o[i][c] = 0.f;
+  float m[8], lsum[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = -INFINITY;
+    lsum[i] = 0.f;
+  }
+
+  for (int tt = 0; tt < ntiles; ++tt) {
+    // k tt is in; still in flight: v tt and k tt+1 (from tile tt-1), or
+    // k 1 (tile 0)
+    if (tt == 0) {
+      if (ntiles > 1) cp_async_wait<1>();
+      else cp_async_wait<0>();
+    } else {
+      if (tt + 1 < ntiles) cp_async_wait<2>();
+      else cp_async_wait<1>();
+    }
+    __syncthreads();
+    const int k0 = kr0 + tt * F_BKV;
+    float* kt = ks + (tt & 1) * Tl::KV_FLOATS;
+    const float* vt = vs;
+
+    float s[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {   // rows in two halves: registers
+        float4 qv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(
+              qs + (4 * ty + i + 32 * hf) * LD + d);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 kv =
+              *reinterpret_cast<const float4*>(kt + (tx + 8 * j) * LD + d);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float& acc = s[4 * hf + i][j];
+            acc = fmaf(qv[i].x, kv.x, acc);
+            acc = fmaf(qv[i].y, kv.y, acc);
+            acc = fmaf(qv[i].z, kv.z, acc);
+            acc = fmaf(qv[i].w, kv.w, acc);
+          }
+        }
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int qp = q0 + 4 * ty + (i & 3) + 32 * (i >> 2);
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int kp = k0 + tx + 8 * j;
+        const bool keep = kp < Sk && (!causal || kp <= qp);
+        s[i][j] = keep ? s[i][j] * scale : -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row8_max(mx));
+      // a row with no unmasked key yet keeps p = 0 and corr = 0
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = expf(m[i] - m_use);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[i][j] = expf(s[i][j] - m_use);
+        sum += s[i][j];
+      }
+      lsum[i] = lsum[i] * corr + sum;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) o[i][c] *= corr;
+    }
+
+    // P^T [key][row], four rows a 16-byte store
+    float* ps = Tl::P_IN_K ? kt : ps_own;
+    if (Tl::P_IN_K) __syncthreads();   // every thread is done with k
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<float4*>(ps + (tx + 8 * j) * LP + 32 * hf + 4 * ty) =
+            make_float4(s[4 * hf][j], s[4 * hf + 1][j], s[4 * hf + 2][j],
+                        s[4 * hf + 3][j]);
+    // v tt is in; k tt+1 may still be in flight
+    if (tt + 1 < ntiles) cp_async_wait<1>();
+    else cp_async_wait<0>();
+    __syncthreads();
+
+    // O += P V, key by key in order
+#pragma unroll 4
+    for (int kk = 0; kk < F_BKV; ++kk) {
+      const float4 pa = *reinterpret_cast<const float4*>(ps + kk * LP + 4 * ty);
+      const float4 pb =
+          *reinterpret_cast<const float4*>(ps + kk * LP + 32 + 4 * ty);
+      const float p[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        float vv[V4];
+        const float* vp = vt + kk * LD + 8 * V4 * c + V4 * tx;
+        if constexpr (V4 == 4) {
+          const float4 x = *reinterpret_cast<const float4*>(vp);
+          vv[0] = x.x; vv[1] = x.y; vv[2] = x.z; vv[3] = x.w;
+        } else {
+          const float2 x = *reinterpret_cast<const float2*>(vp);
+          vv[0] = x.x; vv[1] = x.y;
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < V4; ++e)
+            o[i][V4 * c + e] = fmaf(p[i], vv[e], o[i][V4 * c + e]);
+      }
+    }
+    __syncthreads();   // v and this k stage (P^T) are consumed
+    if (tt + 1 < ntiles) {
+      stage_rows<D>(vs, LD, vb, kv_stride, k0 + F_BKV, F_BKV, Sk, aligned);
+      cp_async_commit();
+    }
+    if (tt + 2 < ntiles) {
+      stage_rows<D>(kt, LD, kb, kv_stride, k0 + 2 * F_BKV, F_BKV, Sk,
+                    aligned);
+      cp_async_commit();
+    }
+  }
+
+  // one key range: the output; several: this range's (m, l, O) for the
+  // combine kernel
+  const size_t rows = static_cast<size_t>(B) * Sq * H;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int qp = q0 + 4 * ty + (i & 3) + 32 * (i >> 2);
+    const float l = row8_sum(lsum[i]);
+    if (qp >= Sq) continue;
+    const size_t row = (static_cast<size_t>(b) * Sq + qp) * H + h;
+    float* dst = out + row * D;
+    float inv = l == 0.f ? 0.f : 1.f / l;
+    if (nsplit > 1) {
+      dst = part + (split * rows + row) * D;
+      inv = 1.f;
+      if (tx == 0) {
+        float* ml = part + F_SPLITS * rows * D + (split * rows + row) * 2;
+        ml[0] = m[i];
+        ml[1] = l;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      float* op = dst + 8 * V4 * c + V4 * tx;
+      if constexpr (V4 == 4)
+        *reinterpret_cast<float4*>(op) =
+            make_float4(o[i][4 * c] * inv, o[i][4 * c + 1] * inv,
+                        o[i][4 * c + 2] * inv, o[i][4 * c + 3] * inv);
+      else
+        *reinterpret_cast<float2*>(op) =
+            make_float2(o[i][2 * c] * inv, o[i][2 * c + 1] * inv);
+    }
+  }
+}
+
+// Merges the key ranges of the query tiles that had several: one thread
+// an output element.
+__global__ void __launch_bounds__(256)
+flash_attention_ffma_combine_kernel(const float* __restrict__ part,
+                                    float* __restrict__ out, int B, int Sq,
+                                    int Sk, int H, int D, int causal, int L) {
+  const size_t rows = static_cast<size_t>(B) * Sq * H;
+  const size_t idx = static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x;
+  if (idx >= rows * D) return;
+  const size_t row = idx / D;
+  const int qp = static_cast<int>(row / H % Sq);
+  const int k_end = causal ? min(Sk, qp / F_BQ * F_BQ + F_BQ) : Sk;
+  const int nsplit = (k_end + L - 1) / L;
+  if (nsplit <= 1) return;   // written by the tile itself
+  const float* ml = part + F_SPLITS * rows * D;
+  float mx = -INFINITY;
+  for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, ml[(s * rows + row) * 2]);
+  const float m_use = mx == -INFINITY ? 0.f : mx;
+  float num = 0.f, den = 0.f;
+  for (int s = 0; s < nsplit; ++s) {
+    const float w = expf(ml[(s * rows + row) * 2] - m_use);
+    num = fmaf(w, part[s * rows * D + idx], num);
+    den = fmaf(w, ml[(s * rows + row) * 2 + 1], den);
+  }
+  out[idx] = den == 0.f ? 0.f : num / den;
+}
+
+template <int D>
+int launch_ffma(const void* q, const void* k, const void* v, void* out,
+                void* part, int B, int Sq, int Sk, int H, int K, int causal,
+                float scale, cudaStream_t stream) {
+  using Tl = FfTiles<D>;
+  if (Tl::SMEM > 48 * 1024) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        flash_attention_ffma_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+  }
+  const long long blocks =
+      static_cast<long long>((Sq + F_BQ - 1) / F_BQ) * H * B * F_SPLITS;
+  const long long elems = static_cast<long long>(B) * Sq * H * D;
+  if (blocks > 0x7fffffffLL || (elems + 255) / 256 > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int L = split_len(Sk);
+  const int aligned = (reinterpret_cast<uintptr_t>(q) |
+                       reinterpret_cast<uintptr_t>(k) |
+                       reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+  flash_attention_ffma_kernel<D><<<static_cast<unsigned>(blocks), F_THREADS,
+                                   Tl::SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(part), B, Sq, Sk, H, K, causal, scale, L, aligned);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // some query tile has several key ranges only if some sees more than L
+  const int widest =
+      causal ? std::min(Sk, (Sq + F_BQ - 1) / F_BQ * F_BQ) : Sk;
+  if (widest <= L) return 0;
+  flash_attention_ffma_combine_kernel<<<static_cast<unsigned>(
+                                            (elems + 255) / 256),
+                                        256, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<float*>(out), B, Sq, Sk,
+      H, D, causal, L);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A call without keys: the reference's zeros over the whole output.
+int zeros(void* out, int B, int Sq, int H, int D, size_t elem,
+          cudaStream_t s) {
+  return static_cast<int>(cudaMemsetAsync(
+      out, 0, static_cast<size_t>(B) * Sq * H * D * elem, s));
+}
+
+// the float32 ffma variant: `part` holds F_SPLITS * B * Sq * H * (D + 2)
+// floats
+int launch_f32_ffma(const void* q, const void* k, const void* v, void* out,
+                    void* part, int B, int Sq, int Sk, int H, int K, int D,
+                    int causal, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Sk <= 0) return zeros(out, B, Sq, H, D, sizeof(float), s);
+  switch (D) {
+    case 16: return launch_ffma<16>(q, k, v, out, part, B, Sq, Sk, H, K, causal, scale, s);
+    case 32: return launch_ffma<32>(q, k, v, out, part, B, Sq, Sk, H, K, causal, scale, s);
+    case 64: return launch_ffma<64>(q, k, v, out, part, B, Sq, Sk, H, K, causal, scale, s);
+    case 128: return launch_ffma<128>(q, k, v, out, part, B, Sq, Sk, H, K, causal, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 bool tma_ready(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// the bf16 wgmma variant: needs keys and 16-byte aligned q, k and v
+// the bf16 wgmma variant: with keys, q, k and v start on 16 bytes
 int launch_bf16_wgmma(const void* q, const void* k, const void* v, void* out,
                       int B, int Sq, int Sk, int H, int K, int D, int causal,
                       float scale, void* stream) {
-  if (Sk <= 0 || !tma_ready(q) || !tma_ready(k) || !tma_ready(v))
-    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Sk <= 0) return zeros(out, B, Sq, H, D, sizeof(__nv_bfloat16), s);
+  if (!tma_ready(q) || !tma_ready(k) || !tma_ready(v))
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 16: return launch_wgmma<16>(q, k, v, out, B, Sq, Sk, H, K, causal, scale, s);
     case 32: return launch_wgmma<32>(q, k, v, out, B, Sq, Sk, H, K, causal, scale, s);
@@ -540,38 +795,25 @@ int launch_bf16_wgmma(const void* q, const void* k, const void* v, void* out,
   }
 }
 
-template <typename T>
-int launch_simt_d(const void* q, const void* k, const void* v, void* out,
-                  int B, int Sq, int Sk, int H, int K, int D, int causal,
-                  float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_simt<T, 16>(q, k, v, out, B, Sq, Sk, H, K, causal, scale, s);
-    case 32: return launch_simt<T, 32>(q, k, v, out, B, Sq, Sk, H, K, causal, scale, s);
-    case 64: return launch_simt<T, 64>(q, k, v, out, B, Sq, Sk, H, K, causal, scale, s);
-    case 128: return launch_simt<T, 128>(q, k, v, out, B, Sq, Sk, H, K, causal, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 }  // namespace
 
-// Plain C interface for ctypes.  Each function enqueues one launch on the
-// caller's stream, does not synchronize, and returns a cudaError_t
-// (cudaErrorInvalidValue for a head size other than 16, 32, 64 or 128).
-// The caller guarantees B, Sq, H, K > 0 with H % K == 0, B and H at most
-// 65535, contiguous q/out [B, Sq, H, D] and k/v [B, Sk, K, D] of the named
-// type on the current device.  flash_attention_bf16 is the wgmma variant
-// and also needs Sk > 0 and 16-byte aligned q, k and v;
-// flash_attention_bf16_simt is the CUDA-core body for bf16, which takes
-// Sk == 0.
+// Plain C interface for ctypes.  Each function enqueues its launches on
+// the caller's stream (with Sk == 0, a cudaMemsetAsync of zeros), does not
+// synchronize, and returns a cudaError_t (cudaErrorInvalidValue for a head
+// size other than 16, 32, 64 or 128).  The caller guarantees B, Sq, H, K
+// > 0 with H % K == 0, B and H at most 65535, contiguous q/out [B, Sq, H,
+// D] and k/v [B, Sk, K, D] of the named type on the current device.
+// flash_attention_f32_ffma is the float32 variant and takes `part`,
+// scratch of F_SPLITS * B * Sq * H * (D + 2) floats.  flash_attention_bf16
+// is the wgmma variant and, with Sk > 0, needs 16-byte aligned q, k and v.
 extern "C" {
 
-int flash_attention_f32(const void* q, const void* k, const void* v,
-                        void* out, int B, int Sq, int Sk, int H, int K, int D,
-                        int causal, float scale, void* stream) {
-  return launch_simt_d<float>(q, k, v, out, B, Sq, Sk, H, K, D, causal, scale,
-                              stream);
+int flash_attention_f32_ffma(const void* q, const void* k, const void* v,
+                             void* out, void* part, int B, int Sq, int Sk,
+                             int H, int K, int D, int causal, float scale,
+                             void* stream) {
+  return launch_f32_ffma(q, k, v, out, part, B, Sq, Sk, H, K, D, causal,
+                         scale, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v,
@@ -579,13 +821,6 @@ int flash_attention_bf16(const void* q, const void* k, const void* v,
                          int D, int causal, float scale, void* stream) {
   return launch_bf16_wgmma(q, k, v, out, B, Sq, Sk, H, K, D, causal, scale,
                            stream);
-}
-
-int flash_attention_bf16_simt(const void* q, const void* k, const void* v,
-                              void* out, int B, int Sq, int Sk, int H, int K,
-                              int D, int causal, float scale, void* stream) {
-  return launch_simt_d<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, K, D,
-                                      causal, scale, stream);
 }
 
 const char* kernel_error_string(int code) {

@@ -8,8 +8,9 @@ CUDA kernel or raises; a CPU tensor takes the plain version in
 and masks ragged sequence edges, so there are no ``bq``/``bk`` knobs
 (the reference wrapper clamped them to the head counts).  On the card
 it has two variants of its own, chosen by :func:`variant`: the tensor
-cores fed by TMA for bfloat16 (``"wgmma"``) and the CUDA cores for
-float32 (``"simt"``).
+cores fed by TMA for bfloat16 (``"wgmma"``) and a register-tiled
+CUDA-core body for float32 (``"ffma"``).  A call without keys writes
+zeros from the variant's C entry, with no kernel launch.
 """
 import ctypes
 import math
@@ -22,7 +23,7 @@ from .ref import flash_attention_ref
 #: Kernel launches made by this process (read by ``chip_smoke.py``),
 #: in all and by variant.
 launches = 0
-launches_by_variant = {"wgmma": 0, "simt": 0}
+launches_by_variant = {"wgmma": 0, "ffma": 0}
 
 #: Head sizes the kernel is instantiated for.
 HEAD_DIMS = (16, 32, 64, 128)
@@ -30,20 +31,24 @@ HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GRID_YZ = 65535
 _INT_MAX = 2 ** 31 - 1
 
-_SYMBOLS = {("simt", torch.float32): "flash_attention_f32",
-            ("simt", torch.bfloat16): "flash_attention_bf16_simt",
+#: Key ranges a float32 query tile is split into (csrc's F_SPLITS): the
+#: ``ffma`` variant's scratch holds each range's (O, m, l).
+FFMA_SPLITS = 4
+
+_SYMBOLS = {("ffma", torch.float32): "flash_attention_f32_ffma",
             ("wgmma", torch.bfloat16): "flash_attention_bf16"}
-_SIGNATURES = {sym: [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-               + [ctypes.c_float, ctypes.c_void_p]
-               for sym in _SYMBOLS.values()}
+_SIGNATURES = {
+    "flash_attention_f32_ffma": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    + [ctypes.c_float, ctypes.c_void_p],
+    "flash_attention_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    + [ctypes.c_float, ctypes.c_void_p]}
 
 
-def variant(dtype: torch.dtype, Sk: int) -> str:
+def variant(dtype: torch.dtype) -> str:
     """The kernel variant a CUDA call takes: ``"wgmma"`` (tensor cores,
-    TMA loads) for bfloat16 with keys, else ``"simt"`` (CUDA cores:
-    float32, where TF32 would miss its 2e-5, and bfloat16 with Sk == 0,
-    which has no tile to load and gives zeros)."""
-    return "wgmma" if dtype == torch.bfloat16 and Sk > 0 else "simt"
+    TMA loads) for bfloat16 and ``"ffma"`` (CUDA cores, each score one
+    fmaf chain over d, the float32 reference's order) for float32."""
+    return "wgmma" if dtype == torch.bfloat16 else "ffma"
 
 
 def _launch(q, k, v, causal: bool) -> torch.Tensor:
@@ -53,19 +58,26 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    which = variant(q.dtype, Sk)
-    if which == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+    which = variant(q.dtype)
+    if which == "wgmma" and Sk and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: bfloat16 operands must start on "
                          "16 bytes (the kernel's TMA loads)")
+    # the ffma variant's key ranges: (O, m, l) each; held until the launch
+    # is enqueued, after which the stream orders any reuse
+    scratch = [torch.empty(FFMA_SPLITS * B * Sq * H * (D + 2),
+                           dtype=torch.float32, device=q.device)] \
+        if which == "ffma" else []
     lib = _build.load("flash_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = getattr(lib, _SYMBOLS[which, q.dtype])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Sk, H, K, D, int(causal), 1.0 / math.sqrt(D), stream)
+            *(t.data_ptr() for t in scratch), B, Sq, Sk, H, K, D,
+            int(causal), 1.0 / math.sqrt(D), stream)
     _build.check(lib, code, "flash_attention")
-    launches += 1
-    launches_by_variant[which] += 1
+    if Sk:   # without keys the C entry writes zeros and launches nothing
+        launches += 1
+        launches_by_variant[which] += 1
     return out
 
 
@@ -92,8 +104,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (float32 or bfloat16), contiguous, on one device; D in
     :data:`HEAD_DIMS`; any Sq and Sk.  The causal mask keeps ``k_pos <=
     q_pos``, both counted from 0.  Returns ``[B,Sq,H,D]`` in q's dtype.
-    On the card, bfloat16 operands must start on 16 bytes (a view at an
-    odd offset raises ``ValueError``); float32 takes any contiguous one.
+    On the card, bfloat16 operands with keys must start on 16 bytes (a
+    view at an odd offset raises ``ValueError``); float32 takes any
+    contiguous one (16-byte copies where all three start on 16 bytes,
+    4-byte ones otherwise).
     """
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "

@@ -148,7 +148,7 @@ def test_flash_attention_bf16_wgmma_matches_plain(cuda, B, Sq, Sk, H, K, D,
     q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(
         cuda, torch.bfloat16)
         for s in ((B, Sq, H, D), (B, Sk, K, D), (B, Sk, K, D)))
-    assert flash_ops.variant(q.dtype, Sk) == "wgmma"
+    assert flash_ops.variant(q.dtype) == "wgmma"
     before = flash_ops.launches_by_variant["wgmma"]
     out = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -159,15 +159,19 @@ def test_flash_attention_bf16_wgmma_matches_plain(cuda, B, Sq, Sk, H, K, D,
 
 
 def test_flash_attention_bf16_without_keys(cuda):
-    """No keys: nothing for TMA to load, so the CUDA-core body runs and
-    gives the reference's zeros."""
+    """No keys: nothing for TMA to load, so the C entry writes the
+    reference's zeros and launches no kernel."""
     q = torch.ones((1, 5, 2, 16), device=cuda, dtype=torch.bfloat16)
     k = torch.ones((1, 0, 1, 16), device=cuda, dtype=torch.bfloat16)
-    before = flash_ops.launches_by_variant["simt"]
+    before = flash_ops.launches
     out = flash_attention(q, k, k)
     torch.cuda.synchronize()
-    assert flash_ops.launches_by_variant["simt"] == before + 1
+    assert flash_ops.launches == before
     assert torch.equal(out, flash_attention_ref(q, k, k))
+    # a view one element in: no load, so no 16-byte rule
+    q1 = torch.ones(1 + q.numel(), device=cuda, dtype=q.dtype)[1:]
+    assert torch.equal(flash_attention(q1.view(q.shape), k, k),
+                       flash_attention_ref(q, k, k))
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
@@ -188,6 +192,101 @@ def test_flash_attention_misaligned_operands(cuda, dtype, tol):
     torch.cuda.synchronize()
     torch.testing.assert_close(out, flash_attention_ref(q, k, v),
                                atol=tol, rtol=tol)
+
+
+def _flash_operands(B, S, H, K, D, device, scale=1.0, seed=3):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(s, np.float32)
+                                  * np.float32(scale)).to(device)
+                 for s in ((B, S, H, D), (B, S, K, D), (B, S, K, D)))
+
+
+@pytest.mark.parametrize("scale", [1.0, 4.0])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_f32_long_sequence(cuda, D, causal, scale):
+    """float32 at 4096 tokens goes through the ffma body and holds the
+    reference's 2e-5, also with inputs x4 (scores of tens)."""
+    q, k, v = _flash_operands(1, 4096, 4, 2, D, cuda, scale)
+    assert flash_ops.variant(q.dtype) == "ffma"
+    before = flash_ops.launches_by_variant["ffma"]
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_ops.launches_by_variant["ffma"] == before + 1
+    torch.testing.assert_close(out, flash_attention_ref(q, k, v,
+                                                        causal=causal),
+                               atol=2e-5, rtol=2e-5)
+
+
+def test_flash_attention_f32_without_keys(cuda):
+    """No keys: the float32 call writes the reference's zeros from the
+    ffma C entry and launches no kernel."""
+    q = torch.ones((1, 5, 2, 16), device=cuda)
+    k = torch.ones((1, 0, 1, 16), device=cuda)
+    assert flash_ops.variant(q.dtype) == "ffma"
+    before = dict(flash_ops.launches_by_variant)
+    out = flash_attention(q, k, k)
+    torch.cuda.synchronize()
+    assert flash_ops.launches_by_variant == before
+    assert torch.equal(out, flash_attention_ref(q, k, k))
+
+
+def _histogram_holds(x, bins):
+    before = histogram_ops.launches
+    out = histogram(x, bins)
+    torch.cuda.synchronize()
+    assert histogram_ops.launches == before + 1
+    assert torch.equal(out, histogram_ref(x, bins))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("n", [7, 1000, (1 << 20) + 5])
+def test_histogram_misaligned_view(cuda, offset, n):
+    """A view that starts 4, 8 or 12 bytes past 16: scalar head, int4
+    body, scalar tail."""
+    rng = np.random.default_rng(offset)
+    x = torch.from_numpy(rng.integers(0, 4096, n + offset, dtype=np.int32))
+    _histogram_holds(x.to(cuda)[offset:], 4096)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7])
+def test_histogram_tiny_inputs(cuda, n):
+    x = torch.arange(n + 1, dtype=torch.int32, device=cuda) % 3
+    _histogram_holds(x[:n], 4)
+    _histogram_holds(x[1:], 4)
+
+
+def test_histogram_one_hot_bin(cuda):
+    """Every value in one bin: the shared atomics' worst contention."""
+    _histogram_holds(torch.full((1 << 20,), 77, dtype=torch.int32,
+                                device=cuda), 4096)
+
+
+def test_histogram_max_bins(cuda):
+    rng = np.random.default_rng(5)
+    bins = histogram_ops.MAX_BINS
+    x = torch.from_numpy(rng.integers(0, bins, 300001, dtype=np.int32))
+    _histogram_holds(x.to(cuda), bins)
+
+
+def test_histogram_out_of_range(cuda):
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, 1 << 20,
+                                      dtype=np.int64).astype(np.int32))
+    x[::3] = torch.from_numpy(rng.integers(-5, 261, x[::3].numel(),
+                                           dtype=np.int32))
+    _histogram_holds(x.to(cuda), 256)
+
+
+@pytest.mark.parametrize("delta", [-1, 0, 1, 5])
+def test_histogram_around_one_cluster(cuda, delta):
+    """n just below, at and above one cluster's worth of values (the
+    grid goes from one cluster to two)."""
+    n = histogram_ops.THREADS * histogram_ops.ITEMS_PER_THREAD \
+        * histogram_ops.CLUSTER + delta
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.integers(-3, 4099, n, dtype=np.int32))
+    _histogram_holds(x.to(cuda), 4096)
 
 
 @pytest.mark.parametrize("rows,d", [(64, 128), (256, 512), (32, 1024),

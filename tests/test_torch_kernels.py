@@ -8,7 +8,9 @@ and handed to both packages.  The CUDA kernels themselves run only on
 the card (tests/test_torch_cuda.py); on a CPU tensor a wrapper takes
 its plain version and launches nothing.
 """
+import ast
 import os
+import re
 import stat
 import subprocess
 import sys
@@ -139,12 +141,51 @@ def test_wrappers_are_custom_ops():
 
 
 def test_histogram_grid_size():
-    sms = 132
-    assert histogram_ops.grid_size(1, sms) == 1
-    per_block = histogram_ops.THREADS * histogram_ops.ITEMS_PER_THREAD
-    assert histogram_ops.grid_size(per_block, sms) == 1
-    assert histogram_ops.grid_size(per_block + 1, sms) == 2
-    assert histogram_ops.grid_size(1 << 28, sms) == sms * 8
+    """Whole clusters, about ITEMS_PER_THREAD values a thread, capped at
+    the clusters the card holds at once; a small input still gets one
+    whole cluster."""
+    cluster = histogram_ops.CLUSTER
+    per_cluster = histogram_ops.THREADS * histogram_ops.ITEMS_PER_THREAD \
+        * cluster
+    assert histogram_ops.grid_size(1, 16) == cluster
+    assert histogram_ops.grid_size(per_cluster, 16) == cluster
+    assert histogram_ops.grid_size(per_cluster + 1, 16) == 2 * cluster
+    assert histogram_ops.grid_size(1 << 28, 16) == 16 * cluster
+    assert histogram_ops.grid_size(1 << 28, 0) == cluster
+    # the main path's largest shape: 2^20 values, 128 blocks, as the old
+    # one-merge-per-block grid had on 132 SMs
+    assert histogram_ops.grid_size(1 << 20, 132) == 128
+    assert histogram_ops.CLUSTER in (1, 2, 4, 8, 16)
+
+
+#: chip_smoke.py's profiler filter of each kernel's device time.
+_PROFILER_FILTERS = {"matmul": "MATMUL_KERNELS",
+                     "histogram": "HISTOGRAM_KERNELS",
+                     "flash_attention": "FLASH_KERNELS",
+                     "rmsnorm": "RMSNORM_KERNELS", "ssd_scan": "SSD_KERNELS"}
+
+
+@pytest.mark.parametrize("name", sorted(_PROFILER_FILTERS))
+def test_profiler_filters_cover_every_kernel(name):
+    """chip_smoke.py's device time counts the profiler events whose names
+    hold one of a tuple of names: every __global__ of a kernel's source
+    must match one, or its time silently drops out of device_ms."""
+    assert set(_PROFILER_FILTERS) == set(_build.kernel_names())
+    src = _build.source(name).read_text()
+    globals_ = re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+        src)
+    assert globals_ and len(globals_) == src.count("__global__"), name
+    smoke = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    consts = {t.id: ast.literal_eval(node.value)
+              for node in ast.parse(open(smoke).read()).body
+              if isinstance(node, ast.Assign)
+              for t in node.targets if isinstance(t, ast.Name)
+              and t.id.endswith("_KERNELS")}
+    names = consts[_PROFILER_FILTERS[name]]
+    for fn in globals_:
+        assert any(n in fn for n in names), (fn, names)
 
 
 def test_kernel_modules_import_without_nvcc():

@@ -228,9 +228,12 @@ def test_nn_wrappers_are_custom_ops():
 
 @pytest.mark.parametrize("dtype,Sk,want", [
     (torch.bfloat16, 4096, "wgmma"), (torch.bfloat16, 1, "wgmma"),
-    (torch.bfloat16, 0, "simt"), (torch.float32, 4096, "simt"),
-    (torch.float32, 0, "simt")])
+    (torch.bfloat16, 0, "wgmma"), (torch.float32, 4096, "ffma"),
+    (torch.float32, 0, "ffma"), (torch.float32, 1, "ffma")])
 def test_flash_attention_variant(dtype, Sk, want):
-    """bf16 with keys takes the tensor cores; float32 (TF32 would miss
-    2e-5) and a key-less call take the CUDA-core body."""
-    assert flash_ops.variant(dtype, Sk) == want
+    """bf16 takes wgmma and float32 the register-tiled CUDA-core body,
+    with or without keys (a key-less call writes zeros from the same C
+    entry)."""
+    assert flash_ops.variant(dtype) == want
+    assert want in flash_ops.launches_by_variant
+    assert (want, dtype) in flash_ops._SYMBOLS
