@@ -41,8 +41,14 @@ Phases, each of which fails the script (non-zero exit, traceback, no
   7. SSD chunk kernel against its plain version, and ``ssd`` (kernel plus
      the inter-chunk recurrence in torch) against the sequential
      ``ssd_reference`` for ``y`` and the final state, at the nn scope's
-     shapes, a ragged one and mamba2-780m's SSD layer; no single torch
-     call computes it, so its library time is null;
+     shapes, a ragged one, mamba2-780m's SSD layer, its widths at batch 8
+     (several heads a block), 5 heads (a ragged head group) and dt x8
+     (in-chunk cumsums of hundreds; there ``ssd`` is held to the plain
+     chunked ``ssd_chunked``, and its distance from the sequential
+     recurrence, which both chunked forms miss, is logged); each shape's variant and
+     heads a block are logged, and the whole ``ssd`` call is split into
+     the kernel and its torch remainder.  No single torch call computes
+     it, so its library time is null;
   8. host path: each step of a histogram and a float32 flash wrapper
      call (argument checks, custom_op dispatch, output allocation, device
      and stream lookup, library lookup, the ctypes call, ``_build.check``)
@@ -53,14 +59,15 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      load and be enabled, every instance must have a record without
      error and with ``compile_time_s``, all five kernels must have
      launched, the mxu scope's bf16 ``cuda`` rows must have gone
-     through matmul's ``wgmma`` variant and the nn scope's float32
-     flash rows through flash attention's ``ffma`` variant;
+     through matmul's ``wgmma`` variant, the nn scope's float32
+     flash rows through flash attention's ``ffma`` variant and its
+     ``ssd_scan_cuda`` rows through the SSD kernel's ``tiled_n64``;
  10. the same main path again in a child process under
      ``torch.profiler``: the device's idle share over its activity
      window;
  11. a ``{"host_path_us": ..., "main_path_idle": ...}`` line, then one
      ``{"kernels": [...]}`` line: per kernel its launches on the main
-     path (with each variant's, for matmul and flash attention), its
+     path (with each variant's, for matmul, flash attention and SSD), its
      largest error against the plain version, and its time,
      the plain version's, the library call's and the card's bound, at
      the main path's largest shape (every shape under ``shapes``).
@@ -159,10 +166,14 @@ RMSNORM_SHAPES = [(torch.float32, 4096, 1024), (torch.float32, 4096, 4096),
                   (torch.bfloat16, 1000, 1000),
                   (torch.bfloat16, 4096, 2048), (torch.bfloat16, 4096, 8192)]
 RMSNORM_HEADLINE = RMSNORM_SHAPES[1]
-#: (b, l, h, p, n, chunk): the nn scope's ssd_scan_cuda rows, ragged
-#: widths, and mamba2-780m's SSD layer (48 heads of 64, state 128).
-SSD_SHAPES = [(2, 1024, 4, 64, 64, 128), (2, 4096, 4, 64, 64, 128),
-              (1, 384, 3, 24, 40, 128), (1, 4096, 48, 64, 128, 128)]
+#: (b, l, h, p, n, chunk, dt scale): the nn scope's ssd_scan_cuda rows,
+#: ragged widths, mamba2-780m's SSD layer (48 heads of 64, state 128),
+#: its widths at batch 8 (4 heads a block on an H100), 5 heads (groups
+#: of 2 and a last of one) and the nn scope's shape with dt x8.
+SSD_SHAPES = [(2, 1024, 4, 64, 64, 128, 1.0), (2, 4096, 4, 64, 64, 128, 1.0),
+              (1, 384, 3, 24, 40, 128, 1.0), (1, 4096, 48, 64, 128, 128, 1.0),
+              (8, 512, 48, 64, 128, 128, 1.0), (4, 4096, 5, 64, 64, 128, 1.0),
+              (2, 1024, 4, 64, 64, 128, 8.0)]
 SSD_HEADLINE = SSD_SHAPES[1]
 
 
@@ -222,7 +233,7 @@ FLASH_KERNELS = ("flash_attention_wgmma_kernel", "flash_attention_ffma_kernel",
                  "flash_attention_ffma_combine_kernel")
 HISTOGRAM_KERNELS = ("histogram_kernel",)
 RMSNORM_KERNELS = ("rmsnorm_kernel",)
-SSD_KERNELS = ("ssd_chunk_kernel",)
+SSD_KERNELS = ("ssd_chunk_tiled_kernel",)
 
 
 def variant_of(ops, before: dict) -> str:
@@ -302,6 +313,13 @@ def check_close(what, got, want, tol) -> float:
     except AssertionError as e:
         raise AssertionError(f"{what}: {e}") from None
     return err
+
+
+def tol_units(got, want, tol) -> float:
+    """Largest |got - want| in units of ``tol + tol |want|`` (1 is the
+    edge of ``check_close``)."""
+    return ((got.float() - want.float()).abs()
+            / (tol + tol * want.float().abs())).max().item()
 
 
 def bound(hw, nbytes, ops, dtype) -> dict:
@@ -546,23 +564,41 @@ def phase_rmsnorm(hw: dict) -> dict:
 def phase_ssd(hw: dict) -> dict:
     gen = torch.Generator("cuda").manual_seed(0)
     shapes = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for key in SSD_SHAPES:
-        b, l, h, p, n, Q = key
+        b, l, h, p, n, Q, scale = key
 
         def randn(*shape):
             return torch.randn(shape, generator=gen, device="cuda")
         x = randn(b, l, h, p) * 0.4
-        dt = F.softplus(randn(b, l, h))
+        dt = F.softplus(randn(b, l, h)) * scale
         A = -torch.exp(randn(h) * 0.3)
         Bm, Cm = randn(b, l, 1, n) * 0.3, randn(b, l, 1, n) * 0.3
         D = torch.ones(h, device="cuda")
         B0, C0 = Bm[:, :, 0], Cm[:, :, 0]
+        before = dict(ssd_ops.launches_by_variant)
         got = ssd_chunk(x, dt, A, B0, C0, chunk=Q)
+        variant = variant_of(ssd_ops, before)
+        group = ssd_ops.head_group(b, l // Q, h, sms)
         want = ssd_chunk_ref(x, dt, A, B0, C0, chunk=Q)
+        if not all(torch.isfinite(t).all() for t in got):
+            raise AssertionError(f"ssd_chunk {key}: non-finite output")
         err = max(check_close(f"ssd_chunk {key} {part}", g, w, SSD_TOL)
                   for part, g, w in zip(("y", "states", "ecs"), got, want))
         y, state = ssd(x, dt, A, Bm, Cm, D, chunk=Q)
-        y_ref, state_ref = ssd_reference(x, dt, A, Bm, Cm, D)
+        # with dt x8 the chunked form itself sits off the recurrence
+        if scale == 1.0:
+            oracle = ssd_reference
+            y_ref, state_ref = ssd_reference(x, dt, A, Bm, Cm, D)
+        else:
+            oracle = ssd_chunked
+            y_ref, state_ref = ssd_chunked(x, dt, A, Bm, Cm, D, chunk=Q)
+            y_seq, state_seq = ssd_reference(x, dt, A, Bm, Cm, D)
+            log(f"  dt x{scale}: ssd from the sequential recurrence, in "
+                f"units of atol + rtol |ref| (logged, not held): y "
+                f"{tol_units(y, y_seq, SSD_TOL):.3f}, state "
+                f"{tol_units(state, state_seq, SSD_TOL):.3f}; ssd_chunked:"
+                f" y {tol_units(y_ref, y_seq, SSD_TOL):.3f}")
         err = max(err, check_close(f"ssd {key} y", y, y_ref, SSD_TOL),
                   check_close(f"ssd {key} state", state, state_ref, SSD_TOL))
         nc = l // Q
@@ -574,6 +610,8 @@ def phase_ssd(hw: dict) -> dict:
                       + 2 * B0.numel() + got[1].numel())
         row = {
             "b": b, "l": l, "h": h, "p": p, "n": n, "chunk": Q,
+            "dt_scale": scale, "variant": variant, "heads_a_block": group,
+            "ssd_oracle": oracle.__name__,
             "max_abs_err": err, "tol": SSD_TOL,
             "ms": time_ms(lambda: ssd_chunk(x, dt, A, B0, C0, chunk=Q)),
             "device_ms": device_ms(
@@ -587,13 +625,18 @@ def phase_ssd(hw: dict) -> dict:
                 lambda: ssd_chunked(x, dt, A, Bm, Cm, D, chunk=Q)),
             **bound(hw, nbytes, ops, torch.float32),
         }
-        log(f"ssd_chunk b={b} l={l} h={h} p={p} n={n} chunk={Q}: "
-            f"max_abs_err {err:.3g} (tol {SSD_TOL}) kernel {row['ms']:.4f}"
+        # the whole call less the kernel's: ssd's torch part
+        row["ssd_torch_ms"] = row["ssd_ms"] - row["ms"]
+        log(f"ssd_chunk b={b} l={l} h={h} p={p} n={n} chunk={Q} dt x{scale}"
+            f" ({variant}, heads a block {group}): "
+            f"max_abs_err {err:.3g} (tol {SSD_TOL}; ssd against "
+            f"{oracle.__name__}) kernel {row['ms']:.4f}"
             f" ms (device {fmt_ms(row['device_ms'])}) plain "
             f"{row['plain_ms']:.4f} ms library none bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}); whole ssd "
-            f"{row['ssd_ms']:.4f} ms, ssd_chunked {row['ssd_chunked_ms']:.4f}"
-            f" ms")
+            f"{row['ssd_ms']:.4f} ms (kernel {row['ms']:.4f}, torch "
+            f"{row['ssd_torch_ms']:.4f}), ssd_chunked "
+            f"{row['ssd_chunked_ms']:.4f} ms")
         shapes.append((key, row))
     return summarize("ssd_scan",
                      "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
@@ -622,7 +665,8 @@ KERNEL_OPS = {"matmul": matmul_ops, "histogram": histogram_ops,
               "flash_attention": flash_ops, "rmsnorm": rmsnorm_ops,
               "ssd_scan": ssd_ops}
 #: Wrappers with variants of their own (``launches_by_variant``).
-VARIANT_OPS = {"matmul": matmul_ops, "flash_attention": flash_ops}
+VARIANT_OPS = {"matmul": matmul_ops, "flash_attention": flash_ops,
+               "ssd_scan": ssd_ops}
 
 
 def expected_instances() -> list:
@@ -704,6 +748,12 @@ def phase_main_path() -> dict:
         raise AssertionError(f"nn flash rows {nn_flash} did not go through "
                              f"flash attention's ffma variant: "
                              f"{by_variant['flash_attention']}")
+    # the nn scope's ssd_scan_cuda rows (state size 64): the tiled body
+    nn_ssd = [n for n in records if n.startswith("nn/ssd_scan_cuda")]
+    if not nn_ssd or by_variant["ssd_scan"]["tiled_n64"] == 0:
+        raise AssertionError(f"nn ssd rows {nn_ssd} did not go through the "
+                             f"SSD kernel's tiled_n64 variant: "
+                             f"{by_variant['ssd_scan']}")
     log(f"main path: {len(records)} records from {', '.join(scopes)} in "
         f"{wall:.1f} s on {ctx['device_kind']}; launches {launches}; by "
         f"variant {by_variant}")

@@ -9,6 +9,12 @@ wraps it in torch ops as the reference wrapped it in XLA: the scan over
 chunk states, the ``C·h_in·exp(cs)`` term and the ``D`` skip.  The chunk
 defaults to 128; the reference's ``tuned.json`` (256) was chosen in CPU
 interpret mode and is not taken.
+
+On the card the kernel is one register-tiled body for chunks up to 128,
+head sizes up to 64 and state sizes up to 128, built for two largest
+state sizes: :func:`variant` picks ``"tiled_n64"`` or ``"tiled_n128"``
+and raises for a shape neither takes.  A block takes one (batch, chunk)
+and :func:`head_group` heads, which share its ``C·Bᵀ``.
 """
 import ctypes
 
@@ -17,17 +23,73 @@ import torch
 from .. import _build
 from .ref import ssd_chunk_ref
 
-#: Kernel launches made by this process (read by ``chip_smoke.py``).
+#: Kernel launches made by this process (read by ``chip_smoke.py``),
+#: in all and by variant.
 launches = 0
+launches_by_variant = {"tiled_n64": 0, "tiled_n128": 0}
+
+#: The kernel's tile limits (csrc's QM, PM and each variant's NM).
+MAX_CHUNK = 128
+MAX_HEAD_SIZE = 64
+STATE_SIZES = {"tiled_n64": 64, "tiled_n128": 128}
+#: Most heads a block takes (one cumsum warp each), and the blocks a
+#: streaming multiprocessor should get before heads are grouped.
+MAX_GROUP = 8
+BLOCKS_PER_SM = 2
 
 _MAX_GRID_YZ = 65535
 _INT_MAX = 2 ** 31 - 1
+_SYMBOLS = {"tiled_n64": "ssd_chunk_f32_n64",
+            "tiled_n128": "ssd_chunk_f32_n128"}
 _SIGNATURES = {
-    "ssd_chunk_f32": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-    + [ctypes.c_void_p],
-    "ssd_chunk_smem_bytes": [ctypes.c_int] * 3,
+    **{sym: [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+       for sym in _SYMBOLS.values()},
+    "ssd_chunk_smem_bytes": [ctypes.c_int] * 2,
     "shared_memory_optin": [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
 }
+#: Per device index: (streaming multiprocessors, opt-in shared memory).
+_DEVICE = {}
+
+
+def variant(chunk: int, p: int, n: int) -> str:
+    """The kernel variant a CUDA call with chunk ``Q``, head size ``p``
+    and state size ``n`` takes: ``"tiled_n64"`` for n ≤ 64,
+    ``"tiled_n128"`` for n ≤ 128.  Raises ``ValueError`` for a chunk
+    above 128 or a head size above 64: the tiles the kernel stages in
+    shared memory are that large."""
+    if chunk <= MAX_CHUNK and p <= MAX_HEAD_SIZE:
+        for name, most in STATE_SIZES.items():
+            if n <= most:
+                return name
+    raise ValueError(
+        f"ssd_chunk: chunk {chunk}, head size {p} and state size {n} exceed "
+        f"the tiles the kernel stages in shared memory (chunk ≤ "
+        f"{MAX_CHUNK}, head size ≤ {MAX_HEAD_SIZE}, state size ≤ "
+        f"{max(STATE_SIZES.values())})")
+
+
+def head_group(b: int, nc: int, h: int, sms: int) -> int:
+    """Heads a block takes, G: the largest power of two up to
+    ``MAX_GROUP`` and up to ``h`` for which the grid of
+    ``b · nc · ceil(h / G)`` blocks still gives each of ``sms``
+    multiprocessors ``BLOCKS_PER_SM`` blocks; 1 where no G > 1 does.
+    The heads of a group share the block's ``C·Bᵀ``."""
+    g = MAX_GROUP
+    while g > 1 and (g > h or b * nc * -(-h // g) < BLOCKS_PER_SM * sms):
+        g //= 2
+    return g
+
+
+def _device(lib, index: int):
+    got = _DEVICE.get(index)
+    if got is None:
+        limit = ctypes.c_int(0)
+        _build.check(lib, lib.shared_memory_optin(index, ctypes.byref(limit)),
+                     "ssd_chunk")
+        got = _DEVICE[index] = (
+            torch.cuda.get_device_properties(index).multi_processor_count,
+            limit.value)
+    return got
 
 
 def _launch(x, dt, A, B, C, chunk: int):
@@ -40,27 +102,28 @@ def _launch(x, dt, A, B, C, chunk: int):
     states = torch.empty((b, nc, h, p, n), dtype=torch.float32,
                          device=x.device)
     ecs = torch.empty((b, l, h), dtype=torch.float32, device=x.device)
-    if y.numel() == 0 or n == 0:
+    if ecs.numel() == 0:
         return y, states, ecs
+    which = variant(Q, p, n)
     lib = _build.load("ssd_scan", _SIGNATURES)
-    need = lib.ssd_chunk_smem_bytes(Q, p, n)
-    limit = ctypes.c_int(0)
     index = x.device.index if x.device.index is not None \
         else torch.cuda.current_device()
-    _build.check(lib, lib.shared_memory_optin(index, ctypes.byref(limit)),
-                 "ssd_chunk")
-    if need > limit.value:
+    sms, limit = _device(lib, index)
+    G = head_group(b, nc, h, sms)
+    need = lib.ssd_chunk_smem_bytes(STATE_SIZES[which], G)
+    if need > limit:
         raise ValueError(f"ssd_chunk: chunk {Q}, head size {p} and state "
                          f"size {n} need {need} bytes of shared memory; "
-                         f"the device allows {limit.value} a block")
+                         f"the device allows {limit} a block")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.ssd_chunk_f32(
+        code = getattr(lib, _SYMBOLS[which])(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), y.data_ptr(), states.data_ptr(), ecs.data_ptr(),
-            b, l, h, p, n, Q, stream)
+            b, l, h, p, n, Q, G, stream)
     _build.check(lib, code, "ssd_chunk")
     launches += 1
+    launches_by_variant[which] += 1
     return y, states, ecs
 
 

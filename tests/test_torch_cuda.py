@@ -20,7 +20,7 @@ from repro_torch.kernels.matmul import ops as matmul_ops
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 from repro_torch.kernels.ssd_scan import (ssd, ssd_chunk, ssd_chunk_ref,
-                                          ssd_reference)
+                                          ssd_chunked, ssd_reference)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
 pytestmark = pytest.mark.cuda
@@ -307,15 +307,36 @@ def test_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype, tol):
                                atol=tol, rtol=tol)
 
 
-def _ssd_operands(b, l, h, p, n, device):
+def _ssd_operands(b, l, h, p, n, device, dt_scale=1.0):
     rng = np.random.default_rng(0)
     f = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa: E731
     x = f(rng.standard_normal((b, l, h, p)) * 0.4)
-    dt = f(np.log1p(np.exp(rng.standard_normal((b, l, h)))))
+    dt = f(np.log1p(np.exp(rng.standard_normal((b, l, h)))) * dt_scale)
     A = f(-np.exp(rng.standard_normal(h) * 0.3))
     Bm = f(rng.standard_normal((b, l, 1, n)) * 0.3)
     Cm = f(rng.standard_normal((b, l, 1, n)) * 0.3)
     return x, dt, A, Bm, Cm, f(np.ones(h))
+
+
+def _ssd_chunk_holds(x, dt, A, Bm, Cm, chunk):
+    """One launch, through the variant ``ops.variant`` names, within
+    3e-5 of the plain version on all three outputs, all finite."""
+    b, l, h, p = x.shape
+    which = ssd_ops.variant(min(chunk, l), p, Bm.shape[-1])
+    before = ssd_ops.launches
+    before_variant = ssd_ops.launches_by_variant[which]
+    got = ssd_chunk(x, dt, A, Bm[:, :, 0], Cm[:, :, 0], chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == before + 1
+    assert ssd_ops.launches_by_variant[which] == before_variant + 1
+    want = ssd_chunk_ref(x, dt, A, Bm[:, :, 0], Cm[:, :, 0], chunk=chunk)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, atol=3e-5, rtol=3e-5)
+
+
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @pytest.mark.parametrize("b,l,h,p,n,chunk", [
@@ -324,17 +345,55 @@ def _ssd_operands(b, l, h, p, n, device):
     (1, 96, 2, 24, 40, 96)])
 def test_ssd_kernel_matches_plain(cuda, b, l, h, p, n, chunk):
     x, dt, A, Bm, Cm, D = _ssd_operands(b, l, h, p, n, cuda)
-    before = ssd_ops.launches
-    got = ssd_chunk(x, dt, A, Bm[:, :, 0], Cm[:, :, 0], chunk=chunk)
-    torch.cuda.synchronize()
-    assert ssd_ops.launches == before + 1
-    want = ssd_chunk_ref(x, dt, A, Bm[:, :, 0], Cm[:, :, 0], chunk=chunk)
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, atol=3e-5, rtol=3e-5)
+    _ssd_chunk_holds(x, dt, A, Bm, Cm, chunk)
     y, s = ssd(x, dt, A, Bm, Cm, D, chunk=chunk)
     yr, sr = ssd_reference(x, dt, A, Bm, Cm, D)
     torch.testing.assert_close(y, yr, atol=3e-5, rtol=3e-5)
     torch.testing.assert_close(s, sr, atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.parametrize("b,l,h,p,n", [
+    (8, 512, 48, 64, 128),    # mamba2-780m's SSD widths, a short sequence
+    (4, 4096, 5, 64, 64)])    # a head count the group does not divide
+def test_ssd_kernel_head_groups(cuda, b, l, h, p, n):
+    """Blocks that take several heads and share their C·Bᵀ (on an H100:
+    G = 4 and G = 2, the second with a last group of one head)."""
+    G = ssd_ops.head_group(b, l // 128, h, _sms(cuda))
+    assert G > 1
+    if h == 5:
+        assert h % G
+    x, dt, A, Bm, Cm, D = _ssd_operands(b, l, h, p, n, cuda)
+    _ssd_chunk_holds(x, dt, A, Bm, Cm, 128)
+    y, s = ssd(x, dt, A, Bm, Cm, D, chunk=128)
+    yr, sr = ssd_reference(x, dt, A, Bm, Cm, D)
+    torch.testing.assert_close(y, yr, atol=3e-5, rtol=3e-5)
+    torch.testing.assert_close(s, sr, atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.parametrize("b,l,h,p,n", [(2, 1024, 4, 64, 64),
+                                       (8, 512, 48, 64, 128)])
+def test_ssd_kernel_large_decay(cuda, b, l, h, p, n):
+    """dt x8: in-chunk cumsums of hundreds, where an exponent taken above
+    the diagonal overflows.  The kernel holds its plain version; ``ssd``
+    holds the plain chunked formulation on the same card.  Both chunked
+    forms sit off the sequential recurrence in y by more than 3e-5 here (their
+    exponent differences of cumsums near -800 round at 6e-5;
+    ``chip_smoke.py`` logs by how much)."""
+    x, dt, A, Bm, Cm, D = _ssd_operands(b, l, h, p, n, cuda, dt_scale=8.0)
+    _ssd_chunk_holds(x, dt, A, Bm, Cm, 128)
+    y, s = ssd(x, dt, A, Bm, Cm, D, chunk=128)
+    yr, sr = ssd_chunked(x, dt, A, Bm, Cm, D, chunk=128)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    torch.testing.assert_close(y, yr, atol=3e-5, rtol=3e-5)
+    torch.testing.assert_close(s, sr, atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.parametrize("p,n", [(8, 0), (0, 16), (7, 13)])
+def test_ssd_kernel_empty_and_odd_widths(cuda, p, n):
+    """No state or no head width still gives exp(cs) (and zeros for y);
+    odd widths take the 4-byte copies."""
+    x, dt, A, Bm, Cm, D = _ssd_operands(1, 64, 3, p, n, cuda)
+    _ssd_chunk_holds(x, dt, A, Bm, Cm, 32)
 
 
 def test_kernels_reject_what_they_cannot_take(cuda):
