@@ -54,18 +54,37 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      and stream lookup, library lookup, the ctypes call, ``_build.check``)
      timed alone over ``HOST_CALLS`` calls on the host clock;
   9. the main path: ``repro_torch.core.main.main(["run", ...])`` over
-     the example, mxu, histo and nn scopes, with the kernels' launch
-     counts set to 0 just before and read just after.  Every scope must
-     load and be enabled, every instance must have a record without
-     error and with ``compile_time_s``, all five kernels must have
-     launched, the mxu scope's bf16 ``cuda`` rows must have gone
-     through matmul's ``wgmma`` variant, the nn scope's float32
-     flash rows through flash attention's ``ffma`` variant and its
-     ``ssd_scan_cuda`` rows through the SSD kernel's ``tiled_n64``;
+     the example, mxu, histo, nn and linalg scopes (one process, nothing
+     persisted: ``--results-dir ''``), with the kernels' launch counts
+     set to 0 just before and read just after.  Every scope must load
+     and be enabled, every instance must have a record without error
+     and with ``compile_time_s``, all five kernels must have launched,
+     the mxu scope's bf16 ``cuda`` rows must have gone through matmul's
+     ``wgmma`` variant, the nn scope's float32 flash rows through flash
+     attention's ``ffma`` variant and its ``ssd_scan_cuda`` rows
+     through the SSD kernel's ``tiled_n64``, and the linalg scope (whose
+     only kernel row is ``matmul_rect``) must have raised matmul's
+     ``simt`` count while it ran (read at the orchestrator's per-scope
+     log line);
  10. the same main path again in a child process under
      ``torch.profiler``: the device's idle share over its activity
      window;
- 11. a ``{"host_path_us": ..., "main_path_idle": ...}`` line, then one
+ 11. the run pipeline, through ``python -m repro_torch`` in child
+     processes over the linalg, mxu and histo scopes at
+     ``--benchmark_min_time 0.02``: ``plan`` lists the instances
+     ``--benchmark_list_tests`` lists; a ``--jobs 2 --shard-grain
+     benchmark --isolate pool`` run writes a ``merged.json`` with the
+     inline run's record names in order, no error, a context naming the
+     card with ``run_id`` and ``shards``, and one history line an
+     instance; after one instance shard is deleted, ``--resume`` re-runs
+     exactly that instance; ``compare`` of the inline document and
+     ``merged.json`` exits 0 or 1 and pairs every row; ``--meters
+     costmodel`` over linalg and mxu gives every matmul row (both
+     backends, both dtypes, batched and rectangular) ``flops`` =
+     2·m·n·k exactly and ``bytes_accessed`` > 0.  One ``{"pipeline":
+     ...}`` line holds these facts and the inline and ``--jobs 2``
+     walls;
+ 12. a ``{"host_path_us": ..., "main_path_idle": ...}`` line, then one
      ``{"kernels": [...]}`` line: per kernel its launches on the main
      path (with each variant's, for matmul, flash attention and SSD), its
      largest error against the plain version, and its time,
@@ -73,7 +92,7 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      the main path's largest shape (every shape under ``shapes``).
      ``ms`` is the time per call of back-to-back calls through the
      wrapper (CUDA events), ``device_ms`` the kernels alone (profiler);
- 12. last line: ``{"ok": true, "device": {...}}``.
+ 13. last line: ``{"ok": true, "device": {...}}``.
 
 Every comparison holds the kernel to its plain version on the same
 inputs with ``atol = rtol = tol``, ``tol`` being the reference's own
@@ -82,6 +101,7 @@ of magnitude above 4 rounds one ulp (over 2e-2) away when the float32
 sums differ in their last bit.
 """
 import json
+import logging
 import math
 import os
 import subprocess
@@ -117,14 +137,15 @@ MATMUL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-1}
 #: bf16 output against the float32 product rounded once to bf16, in ulps
 #: (see ``bf16_ulp_error``): summation order moves a value by at most one.
 BF16_MAX_ULPS = 2.0
-#: (M, K, N) per dtype: the mxu scope's sizes, a ragged shape each way
-#: (bf16: ``simt``, as N or K is odd), a ragged bf16 shape that TMA can
-#: load (``wgmma`` with ragged M and N tiles), llama3.2-1b's MLP
+#: (M, K, N) per dtype: the mxu scope's sizes, the linalg scope's
+#: ``matmul_rect`` (f32 512×256×256), a ragged shape each way (bf16:
+#: ``simt``, as N or K is odd), a ragged bf16 shape that TMA can load
+#: (``wgmma`` with ragged M and N tiles), llama3.2-1b's MLP
 #: up-projection at 4096 tokens, and one large square bf16 product.
 MATMUL_SHAPES = (
     [(torch.float32, s) for s in ((256, 256, 256), (512, 512, 512),
-                                  (1024, 1024, 1024), (1000, 1536, 777),
-                                  (1000, 777, 1536))]
+                                  (1024, 1024, 1024), (512, 256, 256),
+                                  (1000, 1536, 777), (1000, 777, 1536))]
     + [(torch.bfloat16, s) for s in ((256, 256, 256), (512, 512, 512),
                                      (1024, 1024, 1024), (1000, 1536, 777),
                                      (1000, 777, 1536), (1000, 1536, 776),
@@ -682,17 +703,47 @@ def expected_instances() -> list:
     return [name for b in mgr.registry.all() for name, _ in b.instances()]
 
 
-MAIN_SCOPES = ["example", "mxu", "histo", "nn"]
+MAIN_SCOPES = ["example", "mxu", "histo", "nn", "linalg"]
 
 
 def main_argv(out: str) -> list:
+    """The main path's command line; its last two items name the output
+    (the idle-share child drops them)."""
     return ["run"] + [a for s in MAIN_SCOPES for a in ("--enable-scope", s)] \
-        + ["--benchmark_min_time", "0.05", "--benchmark_out", out]
+        + ["--benchmark_min_time", "0.05", "--results-dir", "",
+           "--benchmark_out", out]
+
+
+class ScopeLaunches(logging.Handler):
+    """Matmul's ``simt`` launch count at each of the orchestrator's
+    per-scope lines ("scope <name>: ..."), which it logs as each scope
+    of an inline run ends: the difference from the line before is the
+    count that scope launched."""
+
+    def __init__(self):
+        super().__init__()
+        self.marks = []
+
+    def emit(self, record):
+        if record.msg.startswith("scope %s:"):
+            self.marks.append((record.args[0],
+                               matmul_ops.launches_by_variant["simt"]))
+
+    def launched(self, scope: str) -> int:
+        prev = 0
+        for name, count in self.marks:
+            if name == scope:
+                return count - prev
+            prev = count
+        raise AssertionError(f"no per-scope log line for {scope}: "
+                             f"{self.marks}")
 
 
 def phase_main_path() -> dict:
     from repro_torch.core.main import main
     scopes = MAIN_SCOPES
+    per_scope = ScopeLaunches()
+    logging.getLogger("scope.orchestrate").addHandler(per_scope)
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "run.json")
         argv = main_argv(out)
@@ -702,7 +753,10 @@ def phase_main_path() -> dict:
             ops.launches_by_variant = dict.fromkeys(
                 ops.launches_by_variant, 0)
         t0 = time.perf_counter()
-        rc = main(argv)
+        try:
+            rc = main(argv)
+        finally:
+            logging.getLogger("scope.orchestrate").removeHandler(per_scope)
         torch.cuda.synchronize()
         launches = {name: ops.launches for name, ops in KERNEL_OPS.items()}
         by_variant = {name: dict(ops.launches_by_variant)
@@ -754,11 +808,19 @@ def phase_main_path() -> dict:
         raise AssertionError(f"nn ssd rows {nn_ssd} did not go through the "
                              f"SSD kernel's tiled_n64 variant: "
                              f"{by_variant['ssd_scan']}")
+    # the linalg scope's only kernel row is matmul_rect (float32: simt)
+    rect = records.get("linalg/matmul_rect/m:512/n:256/k:256")
+    rect_launches = per_scope.launched("linalg")
+    if rect is None or rect_launches == 0:
+        raise AssertionError(f"linalg/matmul_rect: record {rect}, simt "
+                             f"launches while linalg ran {rect_launches}")
+    by_variant["matmul"]["simt_linalg"] = rect_launches
     log(f"main path: {len(records)} records from {', '.join(scopes)} in "
         f"{wall:.1f} s on {ctx['device_kind']}; launches {launches}; by "
-        f"variant {by_variant}")
+        f"variant {by_variant} (simt_linalg: the linalg scope's, all "
+        f"matmul_rect)")
     for name, r in records.items():
-        if name.startswith(("mxu/", "histo/", "nn/")):
+        if name.startswith(("mxu/", "histo/", "nn/", "linalg/")):
             log(f"  {name}: {r['real_time']:.3f} {r['time_unit']} "
                 f"(compile {r['compile_time_s']:.3f} s)")
     return launches, by_variant
@@ -818,6 +880,170 @@ def phase_idle_share() -> dict:
         f"a {got['window_s']:.3f} s window: idle share "
         f"{got['idle_share']:.4f}")
     return got
+
+
+#: The run pipeline's scopes and their timing: each instance is
+#: calibrated to fill ``PIPELINE_MIN_TIME`` seconds.
+PIPELINE_SCOPES = ["mxu", "histo", "linalg"]
+PIPELINE_MIN_TIME = "0.02"
+
+
+def repro_torch(*args, timeout=600) -> subprocess.CompletedProcess:
+    """``python -m repro_torch <args>`` in a child process from the
+    checkout's ``src``; its wall seconds on the result's ``wall_s``."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [os.path.join(ROOT, "src"),
+                      os.environ.get("PYTHONPATH")])))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch", *args],
+                       capture_output=True, text=True, env=env, cwd=ROOT,
+                       timeout=timeout)
+    r.wall_s = time.perf_counter() - t0
+    return r
+
+
+def checked_run(*args, ok=(0,)) -> subprocess.CompletedProcess:
+    r = repro_torch(*args)
+    if r.returncode not in ok:
+        raise AssertionError(f"repro_torch {' '.join(args)} exited "
+                             f"{r.returncode}:\n{r.stderr[-3000:]}")
+    return r
+
+
+def matmul_flops(name: str) -> float:
+    """2·m·n·k of a matmul row, from its instance name's axes."""
+    axes = dict(part.split(":", 1) for part in name.split("/")[2:])
+    if name.startswith("mxu/matmul/"):
+        return 2.0 * int(axes["n"]) ** 3
+    if name.startswith("linalg/batched_matmul/"):
+        return 2.0 * int(axes["b"]) * int(axes["n"]) ** 3
+    return 2.0 * int(axes["m"]) * int(axes["n"]) * int(axes["k"])
+
+
+def phase_pipeline() -> dict:
+    """plan → run (inline, then ``--jobs 2`` at benchmark grain in a
+    pool) → resume → compare → the cost meter, all through the CLI on
+    the card."""
+    scopes = [a for s in PIPELINE_SCOPES for a in ("--enable-scope", s)]
+    card = torch.cuda.get_device_name(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. plan lists what --benchmark_list_tests lists
+        plan = checked_run("plan", *scopes, "--jobs", "2")
+        planned = [line.split()[0] for line in plan.stdout.splitlines()
+                   if line.startswith(tuple(f"{s}/" for s in PIPELINE_SCOPES))]
+        listed = checked_run("run", *scopes, "--results-dir", "",
+                             "--benchmark_list_tests").stdout.split()
+        if planned != listed or not planned:
+            raise AssertionError(f"plan {planned} != list {listed}")
+        # 2. inline, then two workers at benchmark grain sharing the card
+        inline_out = os.path.join(tmp, "inline.json")
+        inline = checked_run("run", *scopes, "--benchmark_min_time",
+                             PIPELINE_MIN_TIME, "--results-dir", "",
+                             "--benchmark_out", inline_out)
+        results = os.path.join(tmp, "results")
+        par = checked_run("run", *scopes, "--benchmark_min_time",
+                          PIPELINE_MIN_TIME, "--jobs", "2", "--shard-grain",
+                          "benchmark", "--isolate", "pool", "--results-dir",
+                          results, "--run-id", "pipe", "--benchmark_out",
+                          os.path.join(tmp, "par.json"))
+        run_dir = os.path.join(results, "pipe")
+        with open(inline_out) as f:
+            inline_doc = json.load(f)
+        with open(os.path.join(run_dir, "merged.json")) as f:
+            merged = json.load(f)
+        names = [r["name"] for r in merged["benchmarks"]]
+        if names != [r["name"] for r in inline_doc["benchmarks"]] \
+                or names != listed:
+            raise AssertionError(f"merged.json names {names} differ from "
+                                 f"the inline run's")
+        errors = [r["name"] for d in (inline_doc, merged)
+                  for r in d["benchmarks"] if r.get("error_occurred")]
+        if errors:
+            raise AssertionError(f"records with errors: {errors}")
+        ctx = merged["context"]
+        if ctx["backend"] != "cuda" or ctx["device_kind"] != card \
+                or ctx.get("run_id") != "pipe" \
+                or [s["scope"] for s in ctx.get("shards", [])] != \
+                PIPELINE_SCOPES or len(ctx.get("instances", [])) != len(names):
+            raise AssertionError(f"merged context: { {k: ctx.get(k) for k in ('backend', 'device_kind', 'run_id', 'shards')} }")
+        history = os.path.join(results, "history.jsonl")
+        with open(history) as f:
+            history_lines = [line for line in f if line.strip()]
+        if len(history_lines) != len(names):
+            raise AssertionError(f"history.jsonl: {len(history_lines)} "
+                                 f"lines for {len(names)} instances")
+        # 3. resume re-runs exactly the instance whose shard is gone
+        with open(os.path.join(run_dir, "manifest.json")) as f:
+            items = json.load(f)["items"]
+        victim = next(i for i in items
+                      if i["name"].startswith("linalg/matmul_rect/"))
+        os.remove(os.path.join(run_dir, victim["shard"]))
+        resume = checked_run("run", *scopes, "--benchmark_min_time",
+                             PIPELINE_MIN_TIME, "--jobs", "2",
+                             "--results-dir", results, "--resume", "pipe")
+        with open(os.path.join(run_dir, "manifest.json")) as f:
+            rerun = [i["name"] for i in json.load(f)["items"]
+                     if not i.get("cached")]
+        with open(os.path.join(run_dir, "merged.json")) as f:
+            resumed = json.load(f)
+        if rerun != [victim["name"]] or \
+                [r["name"] for r in resumed["benchmarks"]] != names:
+            raise AssertionError(f"resume re-ran {rerun}, expected only "
+                                 f"{victim['name']}")
+        # 4. compare pairs every row (exit 1 only flags timing)
+        comp = checked_run("compare", inline_out,
+                           os.path.join(run_dir, "merged.json"), ok=(0, 1))
+        rows = [line.split()[0] for line in comp.stdout.splitlines()
+                if line.startswith(tuple(f"{s}/" for s in PIPELINE_SCOPES))]
+        unpaired = [line for line in comp.stdout.splitlines()
+                    if line.endswith((" added", " removed"))]
+        if sorted(rows) != sorted(names) or unpaired:
+            raise AssertionError(f"compare paired {len(rows)} of "
+                                 f"{len(names)} rows: {unpaired}")
+        # 5. the cost meter: every matmul row counts 2·m·n·k
+        cost_out = os.path.join(tmp, "cost.json")
+        checked_run("run", "--enable-scope", "linalg", "--enable-scope",
+                    "mxu", "--meters", "wall,cpu,costmodel",
+                    "--benchmark_min_time", PIPELINE_MIN_TIME,
+                    "--results-dir", "", "--benchmark_out", cost_out)
+        with open(cost_out) as f:
+            cost = {r["name"]: r for r in json.load(f)["benchmarks"]}
+        matmuls = [n for n in cost if n.startswith(
+            ("mxu/matmul/", "linalg/batched_matmul/", "linalg/matmul_rect/"))]
+        wrong = {n: (cost[n].get("flops"), cost[n].get("bytes_accessed"))
+                 for n in matmuls
+                 if cost[n].get("flops") != matmul_flops(n)
+                 or not cost[n].get("bytes_accessed", 0) > 0}
+        kinds = {(b, d) for n in matmuls if n.startswith("mxu/")
+                 for b in ("torch", "cuda") for d in ("f32", "bf16")
+                 if f"backend:{b}/dtype:{d}/" in n}
+        if wrong or len(kinds) != 4 or \
+                "linalg/matmul_rect/m:512/n:256/k:256" not in matmuls:
+            raise AssertionError(f"cost meter: wrong rows {wrong}, "
+                                 f"backend/dtype pairs {sorted(kinds)}")
+    facts = {
+        "scopes": PIPELINE_SCOPES, "instances": len(names),
+        "plan_equals_list": True, "merged_equals_inline": True,
+        "context": {"backend": ctx["backend"],
+                    "device_kind": ctx["device_kind"],
+                    "run_id": ctx["run_id"], "shards": len(ctx["shards"])},
+        "history_lines": len(history_lines),
+        "resume_reran": rerun, "compare_rc": comp.returncode,
+        "compare_rows": len(rows),
+        "costmodel_matmul_rows": len(matmuls),
+        "costmodel": {n: {k: cost[n].get(k) for k in
+                          ("flops", "bytes_accessed", "arithmetic_intensity",
+                           "flops_per_second")}
+                      for n in sorted(matmuls)},
+        "inline_wall_s": inline.wall_s, "jobs2_wall_s": par.wall_s,
+        "resume_wall_s": resume.wall_s,
+    }
+    log(f"pipeline: {len(names)} instances of {', '.join(PIPELINE_SCOPES)}; "
+        f"inline wall {inline.wall_s:.1f} s, --jobs 2 (pool, benchmark "
+        f"grain) {par.wall_s:.1f} s, resume of one instance "
+        f"{resume.wall_s:.1f} s; compare exit {comp.returncode}; "
+        f"{len(matmuls)} matmul rows at 2mnk flops")
+    return facts
 
 
 #: The host steps of one wrapper call, each timed alone over
@@ -920,11 +1146,13 @@ def main() -> int:
     host = phase_host_path()
     launches, by_variant = phase_main_path()
     idle = phase_idle_share()
+    pipeline = phase_pipeline()
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["sass"] = sass[k["name"]]
         if k["name"] in by_variant:
             k["launches_by_variant"] = by_variant[k["name"]]
+    print(json.dumps({"pipeline": pipeline}), flush=True)
     print(json.dumps({"host_path_us": host, "main_path_idle": idle}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

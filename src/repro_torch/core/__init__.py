@@ -21,11 +21,17 @@ from .errorcheck import ScopeError, check_finite, check_shape, checked, sync
 from .flags import FLAGS, FlagRegistry
 from .hooks import HOOKS, HookChain
 from .logging import get_logger
-from .measure import (CpuTimeMeter, DEFAULT_METERS, LatencyMeter, METERS,
-                      Meter, MeterStack, WallClockMeter, parse_meters)
+from .measure import (CostModelMeter, CpuTimeMeter, DEFAULT_METERS,
+                      LatencyMeter, METERS, Meter, MeterStack, WallClockMeter,
+                      parse_meters)
+from .baseline import Comparison, compare_documents, save_baseline
+from .orchestrate import (InstanceResult, OrchestratorOptions, RunResult,
+                          ScopeShard, execute, merge_shards)
+from .plan import Plan, PlanItem, build_plan, load_cost_hints
 from .registry import (REGISTRY, BenchmarkRegistry, benchmark,
                        register_benchmark)
-from .runner import RunOptions, run_benchmarks, write_json
+from .runner import (RunOptions, run_benchmarks, run_single_instance,
+                     write_json)
 from .scope import BUILTIN_SCOPES, Scope, ScopeManager
 from .sysinfo import H100_PCIE, H100_SXM, build_context, target_hardware
 
@@ -35,9 +41,13 @@ __all__ = [
     "ScopeError", "check_finite", "check_shape", "checked", "sync",
     "FLAGS", "FlagRegistry", "HOOKS", "HookChain", "get_logger",
     "Meter", "MeterStack", "WallClockMeter", "CpuTimeMeter", "LatencyMeter",
-    "METERS", "DEFAULT_METERS", "parse_meters",
+    "CostModelMeter", "METERS", "DEFAULT_METERS", "parse_meters",
     "REGISTRY", "BenchmarkRegistry", "benchmark", "register_benchmark",
-    "RunOptions", "run_benchmarks", "write_json",
+    "RunOptions", "run_benchmarks", "run_single_instance", "write_json",
     "BUILTIN_SCOPES", "Scope", "ScopeManager",
+    "Plan", "PlanItem", "build_plan", "load_cost_hints",
+    "InstanceResult", "OrchestratorOptions", "RunResult", "ScopeShard",
+    "execute", "merge_shards", "Comparison", "compare_documents",
+    "save_baseline",
     "H100_SXM", "H100_PCIE", "build_context", "target_hardware",
 ]

@@ -1,10 +1,11 @@
 """The SCOPE binary entry point on PyTorch and CUDA
 (``python -m repro_torch``).
 
-The port of ``repro.core.main``'s ``run`` subcommand, run inline in one
-process::
+The port of ``repro.core.main``::
 
-    python -m repro_torch [run] [flags...]
+    python -m repro_torch [run] [flags...]       # run benchmarks (default)
+    python -m repro_torch plan [flags...]        # print the work plan + costs
+    python -m repro_torch compare A.json B.json  # diff two result documents
 
 Startup follows the reference's run stage:
 
@@ -13,55 +14,71 @@ Startup follows the reference's run stage:
   3. parse CLI (core flags + every scope's declared flags)
   4. run post-parse init hooks
   5. enable/disable scopes, register their benchmarks
-  6. run every selected instance (:mod:`repro_torch.core.runner`) on
-     ``--device`` (default ``cuda``; with no CUDA device the run exits 2
-     rather than carry on on the CPU) and write the GB-JSON document
+  6. build the work plan and hand it to the run orchestrator
+     (:mod:`repro_torch.core.orchestrate`: ``--jobs N`` parallelizes
+     across failure-isolated workers, ``--shard-grain benchmark``
+     schedules instances, ``--resume <run-id>`` completes an interrupted
+     run) on ``--device`` (default ``cuda``; with no CUDA device the run
+     exits 2 rather than carry on on the CPU), write the merged GB-JSON
+     document and, unless ``--results-dir ''``, persist the run under
+     ``<results-dir>/<run-id>/`` and append it to
+     ``<results-dir>/history.jsonl``
+  7. optionally diff against / store a baseline
+     (:mod:`repro_torch.core.baseline`)
 
-The reference's other subcommands and its orchestration, history and
-baseline flags are not ported yet: each is refused with "not yet
-ported", never ignored.  The document this writes is read by the
-reference's ``python -m repro compare``.
+The reference's other subcommands (``ci``, ``lint``, ``tune``,
+``report``, ``query``, ``store``) and its ``--since``, ``--lint`` and
+``--strict`` run flags are not ported yet: each is refused with "not yet
+ported", never ignored.  The reference also stamps ``fingerprints`` on
+every run's context; the port leaves that key out until it has
+``core/fingerprint.py``.  Documents of either package are read by
+either package's ``compare``.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 from typing import List, Optional, Tuple
 
 from . import logging as scope_logging
+from .baseline import (compare_documents, compare_main, format_comparisons,
+                       gate_failures, load_document, save_baseline,
+                       summarize)
 from .benchmark import match_params, parse_param_filter
+from .cli_examples import epilog
 from .flags import FLAGS
 from .hooks import HOOKS
 from .measure import parse_meters
+from .orchestrate import OrchestratorOptions, execute
+from .plan import build_plan, load_cost_hints, scope_worklist
 from .registry import REGISTRY
-from .runner import RunOptions, run_benchmarks, write_json
+from .runner import RunOptions, write_json
 from .scope import ScopeManager
 
 log = scope_logging.get_logger("main")
 
 #: Subcommands of ``python -m repro`` that later slices port.
-NOT_YET_PORTED_COMMANDS = ("plan", "ci", "lint", "tune", "compare", "report",
-                           "query", "store")
-#: ``run`` flags of the reference that need the orchestrator, history,
-#: baselines or the linter, which later slices port.
-NOT_YET_PORTED_FLAGS = ("--jobs", "--isolate", "--shard-grain",
-                        "--results-dir", "--run-id", "--resume", "--since",
-                        "--costs", "--baseline", "--save-baseline", "--lint",
-                        "--strict")
+NOT_YET_PORTED_COMMANDS = ("ci", "lint", "tune", "report", "query", "store")
+#: ``run`` flags of the reference that need the fingerprints or the
+#: linter, which later slices port.
+NOT_YET_PORTED_FLAGS = ("--since", "--lint", "--strict")
 
 _OVERVIEW = """\
-usage: python -m repro_torch [run] [flags...]
+usage: python -m repro_torch [COMMAND] [flags...]
 
 The SCOPE binary on PyTorch and CUDA: run benchmark scopes on the card
-(--device cuda, the default) or on the CPU (--device cpu) and write a
-Google Benchmark JSON document.  `python -m repro compare A.json B.json`
-diffs two documents of either package.
+(--device cuda, the default) or on the CPU (--device cpu), plan and
+schedule the work, and compare results.
 
-examples:
-  python -m repro_torch run --enable-scope mxu
-  python -m repro_torch run --enable-scope histo --param backend=cuda \\
-      --benchmark_out histo.json
-  python -m repro_torch run --device cpu --enable-scope example
+commands:
+  run       run benchmarks (the default when COMMAND is omitted)
+  plan      print the work plan with predicted costs and worker bins
+  compare   mean/stddev-aware diff of two result documents (either
+            package's)
+
+`python -m repro_torch COMMAND --help` shows each command's flags and
+examples.
 """
 
 
@@ -70,10 +87,15 @@ def main(argv: Optional[List[str]] = None,
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] in ("-h", "--help"):
         print(_OVERVIEW)
+        print(epilog("run"))
         return 0
     if argv and argv[0] in NOT_YET_PORTED_COMMANDS:
         log.error("%s is not yet ported to repro_torch", argv[0])
         return 2
+    if argv and argv[0] == "compare":
+        return compare_main(argv[1:])
+    if argv and argv[0] == "plan":
+        return plan_main(argv[1:], scope_modules)
     if argv and argv[0] == "run":
         argv = argv[1:]
     return run_main(argv, scope_modules)
@@ -82,7 +104,7 @@ def main(argv: Optional[List[str]] = None,
 def _setup_scopes(scope_modules: Optional[List[str]],
                   enable: Optional[List[str]], disable: List[str],
                   rest: List[str]) -> Tuple[Optional[ScopeManager], int]:
-    """Steps 1–5 of the startup sequence."""
+    """Steps 1–5 of the startup sequence, shared by run and plan."""
     mgr = ScopeManager()
     mgr.load(scope_modules)
 
@@ -101,10 +123,21 @@ def _setup_scopes(scope_modules: Optional[List[str]],
     return mgr, 0
 
 
+def _refuse_unported(argv: List[str]) -> bool:
+    """Log and return True when ``argv`` holds a flag not ported yet."""
+    refused = sorted({a.split("=", 1)[0] for a in argv
+                      if a.split("=", 1)[0] in NOT_YET_PORTED_FLAGS})
+    if refused:
+        log.error("%s: not yet ported to repro_torch", ", ".join(refused))
+    return bool(refused)
+
+
 def build_run_parser() -> argparse.ArgumentParser:
     """Core run options (scope flags are parsed separately via FLAGS)."""
     sel = argparse.ArgumentParser(prog="python -m repro_torch run",
-                                  add_help=False)
+                                  add_help=False, epilog=epilog("run"),
+                                  formatter_class=
+                                  argparse.RawDescriptionHelpFormatter)
     sel.add_argument("--enable-scope", action="append", default=None,
                      help="enable ONLY these scopes (repeatable)")
     sel.add_argument("--disable-scope", action="append", default=[],
@@ -114,16 +147,62 @@ def build_run_parser() -> argparse.ArgumentParser:
                      metavar="KEY=VALUE",
                      help="run only instances whose typed parameter KEY "
                           "equals VALUE (repeatable; same KEY twice ORs "
-                          "the values, distinct KEYs AND together)")
+                          "the values, distinct KEYs AND together — e.g. "
+                          "--param dtype=bf16 --param backend=cuda)")
     sel.add_argument("--meters", default=None, metavar="LIST",
-                     help="comma-separated measurement meters (available: "
-                          "wall, cpu, latency; default wall,cpu; wall and "
-                          "cpu are always included)")
+                     help="comma-separated measurement meters driven "
+                          "around every batch (available: wall, cpu, "
+                          "costmodel, latency; default wall,cpu).  wall "
+                          "and cpu are always included — they are the "
+                          "record's time sources; costmodel adds "
+                          "flops/bytes_accessed counters from one call of "
+                          "the fixture's callable; latency consumes "
+                          "per-request samples (state.observe) and adds "
+                          "tail-percentile/goodput counters")
     sel.add_argument("--slo-ms", type=float, default=None, metavar="MS",
-                     help="latency objective for the latency meter")
+                     help="latency objective in milliseconds for the "
+                          "latency meter: goodput_rps counts only "
+                          "requests completing within the SLO and "
+                          "slo_attainment reports the fraction that did "
+                          "(default: no SLO — every completed request "
+                          "counts toward goodput)")
     sel.add_argument("--aggregates-only", action="store_true",
                      help="with --benchmark_repetitions > 1, report only "
-                          "the mean/median/stddev aggregate records")
+                          "the mean/median/stddev aggregate records "
+                          "(throughput, compile time and meter counters "
+                          "are carried onto them)")
+    sel.add_argument("--jobs", type=int, default=1,
+                     help="run work in N parallel isolated workers (on "
+                          "the card they share it, and their times "
+                          "contend)")
+    sel.add_argument("--isolate", default="auto",
+                     choices=["auto", "inline", "pool", "subprocess"],
+                     help="worker isolation (auto: inline when --jobs 1; "
+                          "at benchmark grain, pool and subprocess both "
+                          "run one batch interpreter per worker bin)")
+    sel.add_argument("--shard-grain", default="auto",
+                     choices=["auto", "benchmark", "scope"],
+                     help="schedulable unit (auto: benchmark when "
+                          "--jobs > 1 or resuming, scope otherwise)")
+    sel.add_argument("--results-dir", default="results",
+                     help="persist shards + manifest.json + merged.json "
+                          "under <dir>/<run-id>/ and append the run to "
+                          "<dir>/history.jsonl (default: results; pass "
+                          "an empty string to keep the run ephemeral)")
+    sel.add_argument("--run-id", default=None,
+                     help="run directory name (default: timestamp)")
+    sel.add_argument("--resume", default=None, metavar="RUN_ID",
+                     help="re-open <results-dir>/<RUN_ID> and run only the "
+                          "instances whose shard is missing or failed")
+    sel.add_argument("--costs", default=None, metavar="PATH",
+                     help="prior run directory or GB-JSON document used as "
+                          "per-instance cost hints for LPT scheduling")
+    sel.add_argument("--baseline", default=None,
+                     help="compare this run against a stored baseline "
+                          "document/run directory (a history.jsonl path "
+                          "gates against the windowed run history)")
+    sel.add_argument("--save-baseline", default=None,
+                     help="store the merged document as a baseline at PATH")
     return sel
 
 
@@ -142,14 +221,13 @@ def _print_run_help(sel: argparse.ArgumentParser,
 
 def run_main(argv: List[str],
              scope_modules: Optional[List[str]] = None) -> int:
+    # Scope selection + orchestration are core-level (not scope flags),
+    # parsed separately from the FLAGS registry.
     sel = build_run_parser()
     if any(a in ("-h", "--help") for a in argv):
         _print_run_help(sel, scope_modules)
         return 0
-    refused = sorted({a.split("=", 1)[0] for a in argv
-                      if a.split("=", 1)[0] in NOT_YET_PORTED_FLAGS})
-    if refused:
-        log.error("%s: not yet ported to repro_torch", ", ".join(refused))
+    if _refuse_unported(argv):
         return 2
     sel_ns, rest = sel.parse_known_args(argv)
 
@@ -159,6 +237,25 @@ def run_main(argv: List[str],
     except ValueError as e:
         log.error("%s", e)
         return 2
+
+    if sel_ns.resume and not sel_ns.results_dir:
+        log.error("--resume requires --results-dir")
+        return 2
+    if sel_ns.resume and sel_ns.shard_grain == "scope":
+        log.error("--resume requires benchmark shard grain "
+                  "(drop --shard-grain scope)")
+        return 2
+
+    # load the baseline up front: a bad path must fail before the run,
+    # and a history.jsonl baseline must be snapshotted before this run
+    # appends itself to the same file
+    base_doc = None
+    if sel_ns.baseline:
+        try:
+            base_doc = load_document(sel_ns.baseline)
+        except (OSError, json.JSONDecodeError) as e:
+            log.error("baseline %s unreadable: %s", sel_ns.baseline, e)
+            return 2
 
     mgr, rc = _setup_scopes(scope_modules, sel_ns.enable_scope,
                             sel_ns.disable_scope, rest)
@@ -191,18 +288,35 @@ def run_main(argv: List[str],
             log.error("no CUDA device is available: the scopes run on the "
                       "card; pass --device cpu to run them on the CPU")
             return 2
+    # don't dispatch workers for scopes the filter selects nothing from —
+    # each would pay a fresh interpreter and a torch import for 0 records
+    matched = {b.scope for b in benches}
+    mgr.configure(disable=[name for name, _ in scope_worklist(mgr)
+                           if name not in matched])
 
-    opts = RunOptions(
-        min_time=FLAGS.get("benchmark_min_time", 0.05),
-        repetitions=FLAGS.get("benchmark_repetitions", 1),
-        report_aggregates_only=sel_ns.aggregates_only,
-        param_filter=param_filter,
-        meters=meters,
-        slo_ms=sel_ns.slo_ms,
-        device=device,
+    opts = OrchestratorOptions(
+        jobs=sel_ns.jobs,
+        isolate=sel_ns.isolate,
+        shard_grain=sel_ns.shard_grain,
+        benchmark_filter=pattern,
+        run=RunOptions(
+            min_time=FLAGS.get("benchmark_min_time", 0.05),
+            repetitions=FLAGS.get("benchmark_repetitions", 1),
+            report_aggregates_only=sel_ns.aggregates_only,
+            param_filter=param_filter,
+            meters=meters,
+            slo_ms=sel_ns.slo_ms,
+            device=device,
+        ),
+        flag_values={s.name: FLAGS.get(s.name) for s in FLAGS.declared()},
+        results_dir=sel_ns.results_dir or None,
+        run_id=sel_ns.resume or sel_ns.run_id,
+        resume=bool(sel_ns.resume),
+        cost_source=sel_ns.costs,
     )
-    doc = run_benchmarks(benches, opts,
-                         context_extra={"scopes": mgr.status()})
+    result = execute(mgr, REGISTRY, opts,
+                     context_extra={"scopes": mgr.status()})
+    doc = result.doc
 
     out = FLAGS.get("benchmark_out")
     if out:
@@ -211,6 +325,105 @@ def run_main(argv: List[str],
     else:
         write_json(doc, sys.stdout)
         print()
+    if result.out_dir:
+        log.info("run %s persisted under %s", result.run_id, result.out_dir)
+
+    rc = 0
+    if base_doc is not None:
+        comps = compare_documents(base_doc, doc)
+        print(format_comparisons(comps), file=sys.stderr)
+        counts = summarize(comps)
+        log.info("baseline diff: %s",
+                 ", ".join(f"{v} {k}" for k, v in sorted(counts.items())))
+        if gate_failures(comps):
+            rc = 1
+    if sel_ns.save_baseline:
+        save_baseline(doc, sel_ns.save_baseline)
+    return rc
+
+
+def build_plan_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch plan",
+                                 add_help=False, epilog=epilog("plan"),
+                                 formatter_class=
+                                 argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--enable-scope", action="append", default=None)
+    ap.add_argument("--disable-scope", action="append", default=[])
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="worker count the bin column assumes")
+    ap.add_argument("--costs", default=None, metavar="PATH",
+                    help="prior run directory or GB-JSON document used as "
+                         "per-instance cost hints")
+    ap.add_argument("--param", action="append", default=[],
+                    metavar="KEY=VALUE",
+                    help="plan only instances whose typed parameter KEY "
+                         "equals VALUE (repeatable)")
+    return ap
+
+
+def plan_main(argv: List[str],
+              scope_modules: Optional[List[str]] = None) -> int:
+    """``python -m repro_torch plan`` — print the work plan with
+    predicted costs.
+
+    Shows exactly what a ``--shard-grain benchmark`` run would schedule:
+    every benchmark instance with its stable ID, its predicted cost
+    (``--costs`` hints, else the plan default), and the worker bin LPT
+    assigns it to for the given ``--jobs``.  Nothing runs, so a plan for
+    ``--device cuda`` (the default) needs no card.
+    """
+    ap = build_plan_parser()
+    if any(a in ("-h", "--help") for a in argv):
+        print(ap.format_help())
+        return 0
+    if _refuse_unported(argv):
+        return 2
+    ns, rest = ap.parse_known_args(argv)
+
+    try:
+        param_filter = parse_param_filter(ns.param)
+    except ValueError as e:
+        log.error("%s", e)
+        return 2
+
+    mgr, rc = _setup_scopes(scope_modules, ns.enable_scope,
+                            ns.disable_scope, rest)
+    if mgr is None:
+        return rc
+    mgr.register_all()
+
+    hints = {}
+    if ns.costs:
+        try:
+            hints = load_cost_hints(ns.costs)
+        except (OSError, json.JSONDecodeError) as e:
+            log.warning("cost source %s unreadable (%s); planning without "
+                        "hints", ns.costs, e)
+    pattern = FLAGS.get("benchmark_filter", ".*")
+    plan = build_plan(mgr, REGISTRY, pattern, cost_hints=hints,
+                      param_filter=param_filter)
+    if not plan.items:
+        log.error("no benchmarks match %r%s", pattern,
+                  f" with --param {ns.param}" if param_filter else "")
+        return 1
+
+    items = plan.items
+    bins = plan.bins(ns.jobs, items)
+    bin_of = {item.instance_id: k
+              for k, b in enumerate(bins) for item in b}
+    width = max(len(i.name) for i in items)
+    print(f"{'instance':<{width}}  {'cost_s':>9}  {'hint':>5}  bin  "
+          f"instance_id")
+    for item in items:
+        hint = "prior" if item.cost is not None else "def"
+        print(f"{item.name:<{width}}  {plan.cost_of(item):>9.4f}  "
+              f"{hint:>5}  {bin_of[item.instance_id]:>3d}  "
+              f"{item.instance_id}")
+    loads = [sum(plan.cost_of(i) for i in b) for b in bins]
+    print(f"\n{len(items)} instance(s) across {len(bins)} worker "
+          f"bin(s); predicted total "
+          f"{sum(plan.cost_of(i) for i in items):.2f}s, "
+          f"makespan {max(loads):.2f}s")
     return 0
 
 

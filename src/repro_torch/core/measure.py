@@ -17,16 +17,17 @@ batch:
     deliverables (``state.deliver(out)``) hold a CUDA tensor, falling
     back to the fixture context with a weak-fence warning;
   * :class:`CpuTimeMeter` — ``time.process_time`` over the same window;
+  * :class:`CostModelMeter` — ``flops``, ``bytes_accessed`` and
+    ``arithmetic_intensity`` from one call of the fixture's callable,
+    once per instance; with the wall clock the stack derives achieved
+    ``flops_per_second`` on every record;
   * :class:`LatencyMeter` — tail percentiles from the observe channel.
-
-The cost-model meter (``--meters costmodel``) needs a FLOP source for
-torch programs and waits for the roofline slice; asking for it fails
-with "not yet ported" instead of running without it.
 """
 from __future__ import annotations
 
 import sys
-from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 from .logging import get_logger
 
@@ -40,9 +41,6 @@ CPU_TIME = "cpu_time_s"
 #: The meter set a run uses when neither the family nor the run options
 #: select one.
 DEFAULT_METERS = ("wall", "cpu")
-
-#: Meters of the reference that this package does not have yet.
-NOT_YET_PORTED = ("costmodel",)
 
 #: Families already warned about a weak (inputs-only) default fence.
 _WEAK_FENCE_WARNED: set = set()
@@ -113,6 +111,19 @@ def default_sync(state, family: str = "") -> None:
     torch = sys.modules["torch"]
     for device in devices:
         torch.cuda.synchronize(device)
+
+
+def fixture_call(state) -> Optional[Tuple[Callable, tuple]]:
+    """The ``(callable, args)`` convention of fixture contexts.
+
+    Builtin fixtures return ``(fn, *operands)``; meters that need the
+    computation (cost model) recover it from that shape.  ``None`` when
+    the fixture doesn't follow the convention.
+    """
+    ctx = state.fixture
+    if isinstance(ctx, tuple) and ctx and callable(ctx[0]):
+        return ctx[0], tuple(ctx[1:])
+    return None
 
 
 class Meter:
@@ -190,6 +201,126 @@ class CpuTimeMeter(Meter):
         return {CPU_TIME: state.cpu_elapsed}
 
 
+def _tensor_bytes(tree: Any) -> int:
+    return sum(t.numel() * t.element_size() for t in tensor_leaves(tree))
+
+
+def _bytes_mode():
+    """A ``TorchDispatchMode`` that sums, over every op dispatched under
+    it, the bytes of the op's tensor operands and results.  Views move
+    no data and are skipped: the ops the schema marks as views
+    (``func.is_view``) and ``_unsafe_view``, which is one without the
+    mark.  Built on call so that importing this module imports no
+    torch."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    unsafe_view = torch.ops.aten._unsafe_view.default
+
+    class BytesMode(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.nbytes = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not (func.is_view or func is unsafe_view):
+                self.nbytes += _tensor_bytes((args, kwargs)) \
+                    + _tensor_bytes(out)
+            return out
+
+    return BytesMode()
+
+
+class CostModelMeter(Meter):
+    """Cost-model counters from one call of the fixture's callable.
+
+    The port of ``repro.core.measure.CostModelMeter``.  The reference
+    lowers the fixture's ``(fn, *args)`` through XLA and reads the
+    optimized HLO; here ``prepare`` calls ``fn(*args)`` once, on the
+    run's device, under two dispatch modes:
+
+      * ``flops`` — ``torch.utils.flop_counter.FlopCounterMode``: exact
+        for products (2·out·contract for ``mm``/``bmm``, convolutions,
+        attention) and 0 for elementwise work, which it does not count.
+        The hand kernels are ``torch.library`` custom ops, opaque to the
+        counter; each registers a formula
+        (``register_flop_formula``) equal to the count of its plain
+        version, so a ``torch`` row and a ``cuda`` row of one family
+        report the same ``flops``;
+      * ``bytes_accessed`` — :func:`_bytes_mode`: each dispatched op's
+        tensor operands and results, summed.  XLA's ``bytes accessed``
+        is taken after fusion, so an intermediate that stays on chip
+        counts nowhere; here every op is counted alone, with no fusion:
+        an intermediate counts once as the result of the op that makes
+        it and again as an operand of each op that reads it.  A custom
+        op counts as one op (its operands and results), whatever its
+        kernel reads again.
+
+    ``arithmetic_intensity`` is their ratio.  Each counter is omitted
+    when zero.  The analysis runs once per ``(family, params)`` in
+    ``prepare``, before the warm batch, so it stays out of
+    ``compile_time_s``; ``prepare`` synchronizes the operands' devices
+    before it returns, so the analysis call's work cannot leak into the
+    warm batch's timing.  A family whose fixture does not follow the
+    ``(fn, *args)`` convention, or whose call raises, gets no counters
+    and does not fail.
+    """
+
+    name = "costmodel"
+
+    def __init__(self):
+        self._cache: Dict[str, Dict[str, float]] = {}
+        self._family = ""
+
+    def bind(self, bench) -> None:
+        # part of the cache key: a meter instance shared across
+        # families (set_meters) must not hand one family's flops to
+        # another family whose point has the same axis values
+        self._family = bench.name
+
+    def _key(self, state) -> str:
+        return f"{self._family}|{state.params.canonical()}"
+
+    def prepare(self, state) -> None:
+        key = self._key(state)
+        if key not in self._cache:
+            self._cache[key] = self._analyze(state)
+
+    def end(self, state) -> Dict[str, float]:
+        key = self._key(state)
+        if key not in self._cache:
+            self._cache[key] = self._analyze(state)
+        return dict(self._cache[key])
+
+    def _analyze(self, state) -> Dict[str, float]:
+        call = fixture_call(state)
+        if call is None:
+            return {}
+        fn, args = call
+        import torch
+        from torch.utils.flop_counter import FlopCounterMode
+        try:
+            with FlopCounterMode(display=False) as counter, \
+                    _bytes_mode() as moved:
+                fn(*args)
+            for device in cuda_devices(args):
+                torch.cuda.synchronize(device)
+        except Exception as e:  # noqa: BLE001 - degrade, don't fail the run
+            log.debug("costmodel: %s could not be analyzed: %s",
+                      state.params, e)
+            return {}
+        flops = float(counter.get_total_flops())
+        nbytes = float(moved.nbytes)
+        out: Dict[str, float] = {}
+        if flops:
+            out["flops"] = flops
+        if nbytes:
+            out["bytes_accessed"] = nbytes
+        if flops and nbytes:
+            out["arithmetic_intensity"] = flops / nbytes
+        return out
+
+
 class LatencyMeter(Meter):
     """Tail-latency distribution counters from the per-sample channel.
 
@@ -254,15 +385,13 @@ class LatencyMeter(Meter):
 METERS: Dict[str, Callable[[], Meter]] = {
     "wall": WallClockMeter,
     "cpu": CpuTimeMeter,
+    "costmodel": CostModelMeter,
     "latency": LatencyMeter,
 }
 
 
 def validate_meter_name(name: str) -> str:
-    """Raise ``ValueError`` unless ``name`` is a registered meter; a
-    meter of the reference that is not ported yet says so."""
-    if name in NOT_YET_PORTED:
-        raise ValueError(f"meter {name!r} is not yet ported to repro_torch")
+    """Raise ``ValueError`` unless ``name`` is a registered meter."""
     if name not in METERS:
         raise ValueError(
             f"unknown meter {name!r} (available: {', '.join(METERS)})")
@@ -270,7 +399,7 @@ def validate_meter_name(name: str) -> str:
 
 
 def parse_meters(spec: str) -> List[str]:
-    """``--meters wall,cpu,latency`` → validated name list."""
+    """``--meters wall,cpu,costmodel`` → validated name list."""
     names: List[str] = []
     for part in spec.split(","):
         name = part.strip()
@@ -289,6 +418,8 @@ class MeterStack:
 
     ``begin`` runs meters in order, ``end`` in reverse order (the wall
     meter is always first, so its clock brackets the others' reads).
+    ``end`` merges every meter's metrics and, with both a cost model and
+    a wall time present, adds achieved ``flops_per_second``.
     """
 
     def __init__(self, meters: Sequence[Meter]):
@@ -337,4 +468,9 @@ class MeterStack:
         metrics: Dict[str, float] = {}
         for m in reversed(self.meters):
             metrics.update(m.end(state))
+        wall = metrics.get(WALL_TIME)
+        flops = metrics.get("flops")
+        if wall and flops:
+            metrics["flops_per_second"] = \
+                flops * max(state.iterations, 1) / wall
         return metrics

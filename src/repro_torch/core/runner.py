@@ -312,6 +312,38 @@ def _error_record(bench: Benchmark, name: str, st: State, reps: int,
     )
 
 
+def run_single_instance(benches: Sequence[Benchmark], instance_name: str,
+                        opts: Optional[RunOptions] = None,
+                        context_extra: Optional[Dict[str, Any]] = None
+                        ) -> Dict[str, Any]:
+    """Run exactly one *named* instance; return a full GB-JSON document.
+
+    The benchmark-grained orchestrator's unit of work
+    (:mod:`repro_torch.core.plan`): ``instance_name`` is a display name
+    (``scope/family/axis:value/...``), matched against every instance of
+    ``benches``.  Crashes degrade to an error record, like
+    :func:`run_benchmarks`; an unknown name raises ``KeyError`` so the
+    caller can tell "no such instance" apart from "instance failed".
+    """
+    opts = opts or RunOptions()
+    for bench in benches:
+        for name, params in bench.instances():
+            if name != instance_name:
+                continue
+            try:
+                records = run_instance(bench, params, opts)
+            except Exception as e:  # noqa: BLE001 - isolate benchmark crashes
+                log.error("benchmark %s crashed: %s", name, e)
+                st = State()
+                st.skip_with_error(f"crashed: {e}")
+                records = [_error_record(bench, name, st, 1)]
+            return {
+                "context": build_context(context_extra, device=opts.device),
+                "benchmarks": [r.to_json() for r in records],
+            }
+    raise KeyError(f"no benchmark instance named {instance_name!r}")
+
+
 def run_benchmarks(benches: Sequence[Benchmark],
                    opts: Optional[RunOptions] = None,
                    context_extra: Optional[Dict[str, Any]] = None,

@@ -42,6 +42,7 @@ BUILTIN_SCOPES = [
     "repro_torch.scopes.mxu_scope",
     "repro_torch.scopes.histo_scope",
     "repro_torch.scopes.nn_scope",
+    "repro_torch.scopes.linalg_scope",
 ]
 
 

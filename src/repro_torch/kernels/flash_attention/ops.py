@@ -16,6 +16,7 @@ import ctypes
 import math
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
 from .ref import flash_attention_ref
@@ -95,6 +96,16 @@ def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @_flash_attention.register_fake
 def _(q, k, v, causal):
     return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_attention_flops(q_shape, k_shape, v_shape, causal, *,
+                           out_shape=None, **kwargs) -> int:
+    """``FlopCounterMode``'s count of the plain version (two batched
+    products, scores and output, over every (query, key) pair whatever
+    the causal mask drops): 4·B·H·Sq·Sk·D."""
+    B, Sq, H, D = q_shape
+    return 4 * B * H * Sq * k_shape[1] * D
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

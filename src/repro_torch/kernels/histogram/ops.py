@@ -9,6 +9,7 @@ import ctypes
 from typing import Dict, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
 from .ref import histogram_ref
@@ -94,6 +95,13 @@ def _histogram(x: torch.Tensor, nbins: int) -> torch.Tensor:
 @_histogram.register_fake
 def _(x: torch.Tensor, nbins: int) -> torch.Tensor:
     return x.new_empty((nbins,), dtype=torch.int32)
+
+
+@register_flop_formula(torch.ops.repro_torch.histogram)
+def _histogram_flops(x_shape, nbins, *, out_shape=None, **kwargs) -> int:
+    """``FlopCounterMode``'s count of ``histogram_ref``: 0.  Counting is
+    integer work, which the counter does not count."""
+    return 0
 
 
 def histogram(x: torch.Tensor, nbins: int) -> torch.Tensor:

@@ -10,6 +10,7 @@ tensor cores fed by TMA (``"wgmma"``) and the CUDA cores (``"simt"``).
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
 from .ref import matmul_ref
@@ -70,6 +71,14 @@ def _matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 @_matmul.register_fake
 def _(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return x.new_empty((x.shape[0], y.shape[1]))
+
+
+@register_flop_formula(torch.ops.repro_torch.matmul)
+def _matmul_flops(x_shape, y_shape, *, out_shape=None, **kwargs) -> int:
+    """``FlopCounterMode``'s count of ``matmul_ref`` (one ``mm``), which
+    cannot see into the custom op: 2·M·N·K."""
+    (M, K), N = x_shape, y_shape[1]
+    return 2 * M * N * K
 
 
 def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,7 @@ counterpart here: the kernel runs one block per row.
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
 from .ref import rmsnorm_ref
@@ -55,6 +56,16 @@ def _rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float
 @_rmsnorm.register_fake
 def _(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return torch.empty_like(x)
+
+
+@register_flop_formula(torch.ops.repro_torch.rmsnorm)
+def _rmsnorm_flops(x_shape, scale_shape, eps, *, out_shape=None,
+                   **kwargs) -> int:
+    """``FlopCounterMode``'s count of ``rmsnorm_ref``: 0.  It counts
+    products only, and the norm is elementwise work and a row sum; the
+    formula says so rather than invent a count the counter would not
+    give the plain version."""
+    return 0
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,

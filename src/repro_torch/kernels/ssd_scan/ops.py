@@ -19,6 +19,7 @@ and :func:`head_group` heads, which share its ``C·Bᵀ``.
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
 from .ref import ssd_chunk_ref
@@ -145,6 +146,21 @@ def _(x, dt, A, B, C, chunk):
     return (torch.empty_like(x),
             x.new_empty((b, nc, h, p, B.shape[-1]), dtype=torch.float32),
             x.new_empty((b, l, h), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_chunk)
+def _ssd_chunk_flops(x_shape, dt_shape, A_shape, B_shape, C_shape, chunk,
+                     *, out_shape=None, **kwargs) -> int:
+    """``FlopCounterMode``'s count of ``ssd_chunk_ref``: its three
+    batched products, C·Bᵀ per (batch, chunk), ``y`` and the chunk
+    states per head, each over whole Q×Q chunks (the causal half the
+    kernel skips included); the cumsum and the decays are elementwise
+    and count nothing."""
+    b, l, h, p = x_shape
+    n = B_shape[-1]
+    Q = min(chunk, l)
+    nc = l // Q
+    return 2 * b * nc * Q * (Q * n + h * Q * p + h * p * n)
 
 
 def ssd_chunk(x, dt, A, B, C, *, chunk: int = 128):

@@ -414,3 +414,60 @@ def test_kernels_reject_what_they_cannot_take(cuda):
                   histogram_ops.MAX_BINS + 1)
     with pytest.raises(ValueError, match="operands on"):
         matmul(x, x.cpu())
+
+
+# -- the linalg scope, the cost meter and the orchestrator on the card -------
+
+def test_matmul_rect_matches_plain(cuda):
+    """The linalg scope's ``matmul_rect`` point, 512×256×256 float32,
+    through the kernel's ``simt`` variant, to the reference's 1e-4."""
+    x, y = _matmul_operands(512, 256, 256, torch.float32, cuda)
+    before = dict(matmul_ops.launches_by_variant)
+    out = matmul(x, y)
+    torch.cuda.synchronize()
+    assert matmul_ops.launches_by_variant["simt"] == before["simt"] + 1
+    torch.testing.assert_close(out, matmul_ref(x, y), atol=1e-4, rtol=1e-4)
+
+
+def test_cost_meter_counts_a_kernel_row(cuda):
+    """``--meters costmodel`` on a ``cuda`` matmul row: the analysis
+    call launches the kernel once and counts 2·m·n·k from the custom
+    op's formula; the operands and result are the bytes."""
+    from repro_torch.core.benchmark import Params, State
+    from repro_torch.core.measure import CostModelMeter
+    x, y = _matmul_operands(512, 256, 256, torch.float32, cuda)
+    st = State(params=Params({"m": 512}), fixture=(matmul, x, y))
+    before = matmul_ops.launches
+    meter = CostModelMeter()
+    meter.prepare(st)
+    assert matmul_ops.launches == before + 1
+    got = meter.end(st)
+    assert got["flops"] == 2.0 * 512 * 256 * 256
+    assert got["bytes_accessed"] == 4.0 * (512 * 256 + 256 * 256
+                                           + 512 * 256)
+
+
+def test_linalg_pool_run_on_the_card(cuda, tmp_path):
+    """``--jobs 2 --isolate pool`` over the linalg scope: two workers
+    share the card, and every record, ``matmul_rect`` included, is
+    free of errors."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [os.path.join(root, "src"),
+                      os.environ.get("PYTHONPATH")])))
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch", "run", "--enable-scope",
+         "linalg", "--jobs", "2", "--isolate", "pool", "--results-dir",
+         str(tmp_path), "--run-id", "card", "--benchmark_min_time", "0.02"],
+        capture_output=True, text=True, env=env, cwd=root, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    doc = json.loads((tmp_path / "card" / "merged.json").read_text())
+    names = [rec["name"] for rec in doc["benchmarks"]]
+    assert "linalg/matmul_rect/m:512/n:256/k:256" in names
+    assert not [rec for rec in doc["benchmarks"]
+                if rec.get("error_occurred")]
+    assert doc["context"]["backend"] == "cuda"

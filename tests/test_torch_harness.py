@@ -41,8 +41,7 @@ def _env():
 def run_cli(package: str, *args: str, out=None, timeout: int = 300):
     """``python -m <package> run ...``; returns (rc, document or None)."""
     argv = [sys.executable, "-m", package, "run", *args]
-    if package == "repro":
-        argv += ["--results-dir", ""]
+    argv += ["--results-dir", ""]
     if out is not None:
         argv += ["--benchmark_out", str(out)]
     r = subprocess.run(argv, capture_output=True, text=True, env=_env(),
@@ -179,7 +178,7 @@ def test_meter_stack_times_a_body():
 
 
 @pytest.mark.parametrize("spec,ok", [("wall,cpu,latency", True),
-                                     ("costmodel", False),
+                                     ("costmodel", True),
                                      ("wall,bogus", False)])
 def test_meter_names(spec, ok):
     if ok:
@@ -221,10 +220,9 @@ def test_bridge_carries_numpy_and_bfloat16():
 # -- the CLI ----------------------------------------------------------------
 
 @pytest.mark.parametrize("argv", [
-    ["run", "--jobs", "2"], ["run", "--resume=abc"], ["--since"],
-    ["run", "--baseline", "b.json"], ["run", "--lint"],
-    ["run", "--results-dir", "r"], ["compare", "a", "b"], ["plan"],
-    ["report", "x"], ["run", "--meters", "wall,costmodel"],
+    ["run", "--since", "2026-08-01"], ["run", "--strict"], ["--since"],
+    ["ci"], ["run", "--lint"], ["lint"], ["tune", "mxu/matmul"],
+    ["plan", "--since"], ["report", "x"], ["store", "index"],
 ])
 def test_unported_surface_is_refused(argv):
     assert port_main.main(argv) == 2

@@ -59,8 +59,7 @@ def _run(package, args, out):
     argv = [sys.executable, "-m", package, "run", "--enable-scope", "nn",
             *args, "--benchmark_min_time", "0.01", "--benchmark_out",
             str(out)]
-    if package == "repro":
-        argv += ["--results-dir", ""]
+    argv += ["--results-dir", ""]
     r = subprocess.run(argv, capture_output=True, text=True, env=_env(),
                        cwd=ROOT, timeout=600)
     assert r.returncode == 0, r.stderr
@@ -101,7 +100,8 @@ def test_nn_run_on_cpu_pairs_with_reference(tmp_path):
     ctx = port["context"]
     assert ctx["backend"] == "cpu"
     assert ctx["scopes"] == {"example": "disabled", "mxu": "disabled",
-                             "histo": "disabled", "nn": "enabled"}
+                             "histo": "disabled", "nn": "enabled",
+                             "linalg": "disabled"}
 
 
 def test_nn_param_selects_the_same_small_point(tmp_path):

@@ -42,8 +42,7 @@ def _env():
 def _run(package, args, out):
     argv = [sys.executable, "-m", package, "run", *args,
             "--benchmark_out", str(out)]
-    if package == "repro":
-        argv += ["--results-dir", ""]
+    argv += ["--results-dir", ""]
     return subprocess.run(argv, capture_output=True, text=True, env=_env(),
                           cwd=ROOT, timeout=600)
 
@@ -85,7 +84,8 @@ def test_slice_run_on_cpu_pairs_with_reference(tmp_path):
     ctx = port["context"]
     assert ctx["backend"] == "cpu" and ctx["allow_tf32"] is False
     assert ctx["scopes"] == {"example": "disabled", "mxu": "enabled",
-                             "histo": "enabled", "nn": "disabled"}
+                             "histo": "enabled", "nn": "disabled",
+                             "linalg": "disabled"}
 
 
 def _families(mgr_cls, registry, flags, hooks, name):
