@@ -18,10 +18,15 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      attention has no HGMMA (their bf16 ``wgmma`` variants); flash's
      HMMA count is logged (its float32 body runs on the CUDA cores);
   3. matmul kernel against its plain version on the card, f32 and bf16,
-     with the reference's tolerances, plus times and the variant each
-     shape took (``wgmma`` or ``simt``).  bf16 is also held to within
-     ``BF16_MAX_ULPS`` of the float32 product rounded once to bf16,
-     which a kernel that accumulates in bf16 fails;
+     with the reference's tolerances, plus times and the variant and tile
+     each shape took (``wgmma`` or ``simt``; the tile the tuning
+     registry resolves, the builtin one when nothing is tuned).  bf16 is
+     also held to within ``BF16_MAX_ULPS`` of the float32 product
+     rounded once to bf16, which a kernel that accumulates in bf16
+     fails.  Then every instantiated tile of each variant once, at
+     ``MATMUL_TILE_SHAPES``, with the same tolerances (phases 5–7 do the
+     same for their knobs: flash attention's ``ffma`` tiles, RMSNorm's
+     rows a block, the SSD chunks a tune may choose);
   4. histogram kernel against its plain version, exact, plus times, at
      the histo scope's shapes, a ragged and a large n, values out of
      range, every value in one bin and a view one element into its
@@ -51,8 +56,10 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      it, so its library time is null;
   8. host path: each step of a histogram and a float32 flash wrapper
      call (argument checks, custom_op dispatch, output allocation, device
-     and stream lookup, library lookup, the ctypes call, ``_build.check``)
-     timed alone over ``HOST_CALLS`` calls on the host clock;
+     and stream lookup, library lookup, the ctypes call, ``_build.check``,
+     and for flash the tile's resolution through the tuning registry,
+     ``tuning_resolve``) timed alone over ``HOST_CALLS`` calls on the
+     host clock;
   9. the main path: ``repro_torch.core.main.main(["run", ...])`` over
      the example, mxu, histo, nn and linalg scopes (one process, nothing
      persisted: ``--results-dir ''``), with the kernels' launch counts
@@ -84,15 +91,25 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      2·m·n·k exactly and ``bytes_accessed`` > 0.  One ``{"pipeline":
      ...}`` line holds these facts and the inline and ``--jobs 2``
      walls;
- 12. a ``{"host_path_us": ..., "main_path_idle": ...}`` line, then one
+ 12. the tune phase: ``python -m repro_torch tune <family> --budget 8
+     --benchmark_min_time 0.02 --no-report`` in a child process for each
+     of ``TUNE_FAMILIES`` (mxu's with ``--param n=1024``), with
+     ``REPRO_TUNED_DIR`` under ``build/`` so that no ``tuned.json`` lands
+     in the source tree (checked); each must exit 0 with no failed trial
+     and write its winner under the card's name and the variant it ran.
+     One line a family: the instance, the builtin tile and its
+     ``real_time``, the winner and its ``real_time``, the speedup and the
+     trials used; then one ``{"tune": [...]}`` line;
+ 13. a ``{"host_path_us": ..., "main_path_idle": ...}`` line, then one
      ``{"kernels": [...]}`` line: per kernel its launches on the main
      path (with each variant's, for matmul, flash attention and SSD), its
      largest error against the plain version, and its time,
      the plain version's, the library call's and the card's bound, at
-     the main path's largest shape (every shape under ``shapes``).
+     the main path's largest shape (every shape under ``shapes``, every
+     instantiated tile under ``tiles``).
      ``ms`` is the time per call of back-to-back calls through the
      wrapper (CUDA events), ``device_ms`` the kernels alone (profiler);
- 13. last line: ``{"ok": true, "device": {...}}``.
+ 14. last line: ``{"ok": true, "device": {...}}``.
 
 Every comparison holds the kernel to its plain version on the same
 inputs with ``atol = rtol = tol``, ``tol`` being the reference's own
@@ -100,10 +117,13 @@ inputs with ``atol = rtol = tol``, ``tol`` being the reference's own
 of magnitude above 4 rounds one ulp (over 2e-2) away when the float32
 sums differ in their last bit.
 """
+import glob
+import itertools
 import json
 import logging
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -116,7 +136,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.core.sysinfo import target_hardware  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import _build, tuning  # noqa: E402
 from repro_torch.kernels.histogram import histogram, histogram_ref  # noqa: E402
 from repro_torch.kernels.histogram import ops as histogram_ops  # noqa: E402
 from repro_torch.kernels.matmul import (bf16_ulp_error, matmul,  # noqa: E402
@@ -159,6 +179,11 @@ HISTOGRAM_SHAPES = [(n, b, "uniform") for n in (1 << 16, 1 << 20,
                     for b in (256, 4096)] + [
     ((1 << 20) + 3, 4096, "out_of_range"), (1 << 20, 4096, "one_hot_bin"),
     (1 << 20, 4096, "misaligned")]
+#: Where each matmul variant's every instantiated tile is held once: bf16
+#: with K = 4096 (each tile's per-stage float32 fold) for ``wgmma``, and a
+#: ragged float32 shape for ``simt``.
+MATMUL_TILE_SHAPES = {"wgmma": (torch.bfloat16, (256, 4096, 256)),
+                      "simt": (torch.float32, (1000, 1536, 777))}
 #: The main path's largest shape of each kernel: the one the kernels line
 #: reports at its top level.
 MATMUL_HEADLINE = (torch.bfloat16, (1024, 1024, 1024))
@@ -181,12 +206,18 @@ FLASH_SHAPES = (
        (torch.bfloat16, 1, 4096, 32, 8, 64, True),
        (torch.bfloat16, 1, 4096, 16, 8, 128, True)])
 FLASH_HEADLINE = FLASH_SHAPES[2]
+#: Where every ``ffma`` tile is held once: the nn scope's largest shape
+#: (also with inputs x4) and head size 128 at 4096 tokens.
+FLASH_TILE_SHAPES = [FLASH_HEADLINE, FLASH_SHAPES[4]]
 #: (dtype, rows, d): the nn scope's rmsnorm rows, a ragged shape,
 #: llama3.2-1b's d_model and the widest d the Pallas kernel took.
 RMSNORM_SHAPES = [(torch.float32, 4096, 1024), (torch.float32, 4096, 4096),
                   (torch.bfloat16, 1000, 1000),
                   (torch.bfloat16, 4096, 2048), (torch.bfloat16, 4096, 8192)]
 RMSNORM_HEADLINE = RMSNORM_SHAPES[1]
+#: Where every rows-a-block count is held once: the headline and a row
+#: count none but 1 divides.
+RMSNORM_TILE_SHAPES = [RMSNORM_HEADLINE, RMSNORM_SHAPES[2]]
 #: (b, l, h, p, n, chunk, dt scale): the nn scope's ssd_scan_cuda rows,
 #: ragged widths, mamba2-780m's SSD layer (48 heads of 64, state 128),
 #: its widths at batch 8 (4 heads a block on an H100), 5 heads (groups
@@ -196,6 +227,10 @@ SSD_SHAPES = [(2, 1024, 4, 64, 64, 128, 1.0), (2, 4096, 4, 64, 64, 128, 1.0),
               (8, 512, 48, 64, 128, 128, 1.0), (4, 4096, 5, 64, 64, 128, 1.0),
               (2, 1024, 4, 64, 64, 128, 8.0)]
 SSD_HEADLINE = SSD_SHAPES[1]
+#: Where every chunk a tune may choose is held (the kernel to its plain
+#: version, ``ssd`` to the sequential recurrence): the nn scope's rows
+#: and mamba2-780m's SSD layer.
+SSD_TILE_SHAPES = [SSD_SHAPES[0], SSD_SHAPES[1], SSD_SHAPES[3]]
 
 
 def log(msg: str) -> None:
@@ -263,6 +298,16 @@ def variant_of(ops, before: dict) -> str:
     if len(ran) != 1:
         raise AssertionError(f"one launch expected, variants {ran}")
     return ran[0]
+
+
+def tiles_of(table: dict) -> list:
+    """Every tile of a variant's instantiated set (``ops.TILES[v]``)."""
+    return [dict(zip(table, values))
+            for values in itertools.product(*table.values())]
+
+
+def tile_str(tile: dict) -> str:
+    return " ".join(f"{k}={v}" for k, v in tile.items())
 
 
 def fmt_ms(t) -> str:
@@ -368,6 +413,7 @@ def phase_matmul(hw: dict) -> dict:
         before = dict(matmul_ops.launches_by_variant)
         out = matmul(x, y)
         variant = variant_of(matmul_ops, before)
+        tile = matmul_ops.resolve_tile(x, y)[2]
         tol = MATMUL_TOL[dtype]
         err = check_close(f"matmul {dtype} {M}x{K}x{N}", out,
                           matmul_ref(x, y), tol)
@@ -380,7 +426,7 @@ def phase_matmul(hw: dict) -> dict:
                     f"float32 product rounded once (limit {BF16_MAX_ULPS})")
         row = {
             "dtype": dname(dtype), "M": M, "K": K, "N": N,
-            "variant": variant,
+            "variant": variant, "tile": tile,
             "max_abs_err": err, "tol": tol, "max_ulp_err": ulps,
             "ms": time_ms(lambda: matmul(x, y)),
             "device_ms": device_ms(lambda: matmul(x, y), MATMUL_KERNELS),
@@ -390,17 +436,43 @@ def phase_matmul(hw: dict) -> dict:
                     2.0 * M * N * K, dtype),
         }
         ulp_note = "" if ulps is None else f" ulps {ulps:.3g}"
-        log(f"matmul {row['dtype']} {M}x{K}x{N} ({variant}): max_abs_err "
+        log(f"matmul {row['dtype']} {M}x{K}x{N} ({variant}, "
+            f"{tile_str(tile)}): max_abs_err "
             f"{err:.3g} "
             f"(tol {tol}){ulp_note} kernel {row['ms']:.4f} ms (device "
             f"{fmt_ms(row['device_ms'])}) plain "
             f"{row['plain_ms']:.4f} ms torch.matmul {row['library_ms']:.4f} "
             f"ms bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
         shapes.append(((dtype, (M, K, N)), row))
+    tiles = []
+    for which, (dtype, (M, K, N)) in MATMUL_TILE_SHAPES.items():
+        x = (torch.randn((M, K), generator=gen, device="cuda")
+             / math.sqrt(K)).to(dtype)
+        y = torch.randn((K, N), generator=gen, device="cuda").to(dtype)
+        want, tol = matmul_ref(x, y), MATMUL_TOL[dtype]
+        for tile in tiles_of(matmul_ops.TILES[which]):
+            what = f"matmul {dname(dtype)} {M}x{K}x{N} {which} {tile_str(tile)}"
+            before = dict(matmul_ops.launches_by_variant)
+            out = matmul(x, y, **tile)
+            if variant_of(matmul_ops, before) != which:
+                raise AssertionError(f"{what}: another variant")
+            err = check_close(what, out, want, tol)
+            ulps = bf16_ulp_error(out, x, y) \
+                if dtype == torch.bfloat16 else None
+            if ulps is not None and ulps > BF16_MAX_ULPS:
+                raise AssertionError(f"{what}: {ulps} ulps")
+            row = {"variant": which, "tile": tile, "dtype": dname(dtype),
+                   "M": M, "K": K, "N": N, "max_abs_err": err, "tol": tol,
+                   "max_ulp_err": ulps,
+                   "ms": time_ms(lambda: matmul(x, y, **tile))}
+            log(f"{what}: max_abs_err {err:.3g} (tol {tol})"
+                + ("" if ulps is None else f" ulps {ulps:.3g}")
+                + f" kernel {row['ms']:.4f} ms")
+            tiles.append(row)
     return summarize("matmul", "src/repro_torch/kernels/matmul/csrc/matmul.cu",
                      "src/repro/kernels/matmul/kernel.py:38",
                      "src/repro/kernels/matmul/kernel.py::matmul_pallas",
-                     shapes, MATMUL_HEADLINE)
+                     shapes, MATMUL_HEADLINE, tiles)
 
 
 def histogram_input(n, bins, case, gen):
@@ -505,6 +577,7 @@ def phase_flash(hw: dict) -> dict:
         before = dict(flash_ops.launches_by_variant)
         out = flash_attention(q, k, v, causal=causal)
         variant = variant_of(flash_ops, before)
+        tile = flash_ops.resolve_tile(q)[2]
         err = check_close(f"flash_attention {key}", out,
                           flash_attention_ref(q, k, v, causal=causal), tol)
         # (query, key) pairs the mask keeps: what the work depends on
@@ -512,8 +585,8 @@ def phase_flash(hw: dict) -> dict:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         row = {
             "dtype": dname(dtype), "B": B, "S": S, "H": H, "K": K, "D": D,
-            "causal": causal, "variant": variant, "max_abs_err": err,
-            "tol": tol,
+            "causal": causal, "variant": variant, "tile": tile,
+            "max_abs_err": err, "tol": tol,
             "ms": time_ms(lambda: flash_attention(q, k, v, causal=causal)),
             "device_ms": device_ms(
                 lambda: flash_attention(q, k, v, causal=causal),
@@ -526,7 +599,8 @@ def phase_flash(hw: dict) -> dict:
                     4.0 * B * H * D * pairs, dtype),
         }
         log(f"flash_attention {row['dtype']} B={B} S={S} H={H} K={K} D={D}"
-            f" causal={causal} ({variant}): max_abs_err {err:.3g} (tol {tol}) kernel "
+            f" causal={causal} ({variant}, {tile_str(tile)}): max_abs_err "
+            f"{err:.3g} (tol {tol}) kernel "
             f"{row['ms']:.4f} ms (device {fmt_ms(row['device_ms'])}) plain "
             f"{row['plain_ms']:.4f} ms sdpa {row['library_ms']:.4f} ms "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
@@ -536,12 +610,42 @@ def phase_flash(hw: dict) -> dict:
             row["bound_3xtf32_ms"] = 3 * 4.0 * B * H * D * pairs \
                 / hw["peak_tf32_flops"] * 1e3
         shapes.append((key, row))
+    tiles = []
+    for key in FLASH_TILE_SHAPES:
+        dtype, B, S, H, K, D, causal = key
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                   for shape in ((B, S, H, D), (B, S, K, D), (B, S, K, D)))
+        tol = FLASH_TOL[dtype]
+        want = flash_attention_ref(q, k, v, causal=causal)
+        for tile in tiles_of(flash_ops.TILES["ffma"]):
+            what = f"flash_attention {key} ffma {tile_str(tile)}"
+            before = dict(flash_ops.launches_by_variant)
+            out = flash_attention(q, k, v, causal=causal, **tile)
+            if variant_of(flash_ops, before) != "ffma":
+                raise AssertionError(f"{what}: another variant")
+            row = {"variant": "ffma", "tile": tile, "B": B, "S": S, "H": H,
+                   "K": K, "D": D, "causal": causal,
+                   "max_abs_err": check_close(what, out, want, tol),
+                   "tol": tol,
+                   "ms": time_ms(lambda: flash_attention(
+                       q, k, v, causal=causal, **tile))}
+            note = ""
+            if key == FLASH_HEADLINE:
+                q4, k4, v4 = (t * 4 for t in (q, k, v))
+                row["x4_max_abs_err"] = check_close(
+                    f"{what} x4",
+                    flash_attention(q4, k4, v4, causal=causal, **tile),
+                    flash_attention_ref(q4, k4, v4, causal=causal), tol)
+                note = f", x4 {row['x4_max_abs_err']:.3g}"
+            log(f"{what}: max_abs_err {row['max_abs_err']:.3g}{note} (tol "
+                f"{tol}) kernel {row['ms']:.4f} ms")
+            tiles.append(row)
     return summarize(
         "flash_attention",
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:70",
         "src/repro/kernels/flash_attention/kernel.py::flash_attention_pallas",
-        shapes, FLASH_HEADLINE)
+        shapes, FLASH_HEADLINE, tiles)
 
 
 def phase_rmsnorm(hw: dict) -> dict:
@@ -554,12 +658,13 @@ def phase_rmsnorm(hw: dict) -> dict:
         tol = RMSNORM_TOL[dtype]
         err = check_close(f"rmsnorm {key}", rmsnorm(x, s), rmsnorm_ref(x, s),
                           tol)
+        tile = rmsnorm_ops.resolve_tile(x)[1]
         # the library call takes its weight in x's type (a mixed pair is
         # not fused); the cast is made once, outside the timing
         s_lib = s.to(dtype)
         row = {
-            "dtype": dname(dtype), "rows": rows, "d": d, "max_abs_err": err,
-            "tol": tol,
+            "dtype": dname(dtype), "rows": rows, "d": d, "tile": tile,
+            "max_abs_err": err, "tol": tol,
             "ms": time_ms(lambda: rmsnorm(x, s)),
             "device_ms": device_ms(lambda: rmsnorm(x, s),
                                    RMSNORM_KERNELS),
@@ -569,17 +674,37 @@ def phase_rmsnorm(hw: dict) -> dict:
             **bound(hw, 2 * x.numel() * x.element_size() + 4 * d,
                     4.0 * rows * d, dtype),
         }
-        log(f"rmsnorm {row['dtype']} {rows}x{d}: max_abs_err {err:.3g} "
+        log(f"rmsnorm {row['dtype']} {rows}x{d} ({tile_str(tile)}): "
+            f"max_abs_err {err:.3g} "
             f"(tol {tol}) kernel {row['ms']:.4f} ms (device "
             f"{fmt_ms(row['device_ms'])}) plain {row['plain_ms']:.4f} ms "
             f"F.rms_norm {row['library_ms']:.4f} ms bound "
             f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
         shapes.append((key, row))
+    tiles = []
+    for key in RMSNORM_TILE_SHAPES:
+        dtype, rows, d = key
+        x = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
+        s = torch.randn((d,), generator=gen, device="cuda") + 1.0
+        tol, want = RMSNORM_TOL[dtype], rmsnorm_ref(x, s)
+        for tile in tiles_of(rmsnorm_ops.TILES[rmsnorm_ops.VARIANT]):
+            what = f"rmsnorm {dname(dtype)} {rows}x{d} {tile_str(tile)}"
+            before = rmsnorm_ops.launches
+            err = check_close(what, rmsnorm(x, s, **tile), want, tol)
+            if rmsnorm_ops.launches != before + 1:
+                raise AssertionError(f"{what}: no launch")
+            row = {"variant": rmsnorm_ops.VARIANT, "tile": tile,
+                   "dtype": dname(dtype), "rows": rows, "d": d,
+                   "max_abs_err": err, "tol": tol,
+                   "ms": time_ms(lambda: rmsnorm(x, s, **tile))}
+            log(f"{what}: max_abs_err {err:.3g} (tol {tol}) kernel "
+                f"{row['ms']:.4f} ms")
+            tiles.append(row)
     return summarize("rmsnorm",
                      "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
                      "src/repro/kernels/rmsnorm/kernel.py:24",
                      "src/repro/kernels/rmsnorm/kernel.py::rmsnorm_pallas",
-                     shapes, RMSNORM_HEADLINE)
+                     shapes, RMSNORM_HEADLINE, tiles)
 
 
 def phase_ssd(hw: dict) -> dict:
@@ -631,7 +756,7 @@ def phase_ssd(hw: dict) -> dict:
                       + 2 * B0.numel() + got[1].numel())
         row = {
             "b": b, "l": l, "h": h, "p": p, "n": n, "chunk": Q,
-            "dt_scale": scale, "variant": variant, "heads_a_block": group,
+            "tile": {"chunk": Q}, "dt_scale": scale, "variant": variant, "heads_a_block": group,
             "ssd_oracle": oracle.__name__,
             "max_abs_err": err, "tol": SSD_TOL,
             "ms": time_ms(lambda: ssd_chunk(x, dt, A, B0, C0, chunk=Q)),
@@ -659,25 +784,72 @@ def phase_ssd(hw: dict) -> dict:
             f"{row['ssd_torch_ms']:.4f}), ssd_chunked "
             f"{row['ssd_chunked_ms']:.4f} ms")
         shapes.append((key, row))
+    tiles = []
+    for key in SSD_TILE_SHAPES:
+        b, l, h, p, n, _, scale = key
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        x = randn(b, l, h, p) * 0.4
+        dt = F.softplus(randn(b, l, h)) * scale
+        A = -torch.exp(randn(h) * 0.3)
+        Bm, Cm = randn(b, l, 1, n) * 0.3, randn(b, l, 1, n) * 0.3
+        D = torch.ones(h, device="cuda")
+        B0, C0 = Bm[:, :, 0], Cm[:, :, 0]
+        y_ref, state_ref = ssd_reference(x, dt, A, Bm, Cm, D)
+        which = ssd_ops.state_variant(n)
+        for tile in tiles_of(ssd_ops.TILES[which]):
+            Q = tile["chunk"]
+            what = f"ssd b={b} l={l} h={h} p={p} n={n} chunk={Q}"
+            before = dict(ssd_ops.launches_by_variant)
+            got = ssd_chunk(x, dt, A, B0, C0, chunk=Q)
+            if variant_of(ssd_ops, before) != which:
+                raise AssertionError(f"{what}: another variant")
+            want = ssd_chunk_ref(x, dt, A, B0, C0, chunk=Q)
+            if not all(torch.isfinite(t).all() for t in got):
+                raise AssertionError(f"{what}: non-finite output")
+            kernel_err = max(check_close(f"{what} {part}", g, w, SSD_TOL)
+                             for part, g, w in zip(("y", "states", "ecs"),
+                                                   got, want))
+            y, state = ssd(x, dt, A, Bm, Cm, D, chunk=Q)
+            ssd_err = max(check_close(f"{what} ssd y", y, y_ref, SSD_TOL),
+                          check_close(f"{what} ssd state", state, state_ref,
+                                      SSD_TOL))
+            row = {"variant": which, "tile": tile, "b": b, "l": l, "h": h,
+                   "p": p, "n": n, "max_abs_err": max(kernel_err, ssd_err),
+                   "kernel_max_abs_err": kernel_err,
+                   "ssd_max_abs_err": ssd_err, "tol": SSD_TOL,
+                   "ms": time_ms(lambda: ssd_chunk(x, dt, A, B0, C0,
+                                                   chunk=Q)),
+                   "ssd_ms": time_ms(lambda: ssd(x, dt, A, Bm, Cm, D,
+                                                 chunk=Q))}
+            log(f"{what} ({which}): kernel max_abs_err {kernel_err:.3g}, "
+                f"ssd against ssd_reference {ssd_err:.3g} (tol {SSD_TOL}); "
+                f"kernel {row['ms']:.4f} ms, whole ssd {row['ssd_ms']:.4f} "
+                f"ms")
+            tiles.append(row)
     return summarize("ssd_scan",
                      "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan/kernel.py:50",
                      "src/repro/kernels/ssd_scan/kernel.py::ssd_chunk_pallas",
-                     shapes, SSD_HEADLINE)
+                     shapes, SSD_HEADLINE, tiles)
 
 
-def summarize(name, source, replaces, function, shapes, headline) -> dict:
+def summarize(name, source, replaces, function, shapes, headline,
+              tiles=()) -> dict:
     top = dict(shapes)[headline]
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "replaces_function": function,
         "launches": None,
-        "max_abs_err": max(row["max_abs_err"] for _, row in shapes),
+        "max_abs_err": max(row["max_abs_err"]
+                           for row in [r for _, r in shapes] + list(tiles)),
         "ms": top["ms"], "device_ms": top["device_ms"],
         "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": top["library_ms"],
         "shapes": [row for _, row in shapes],
+        "tiles": list(tiles),
     }
 
 
@@ -742,6 +914,13 @@ class ScopeLaunches(logging.Handler):
 def phase_main_path() -> dict:
     from repro_torch.core.main import main
     scopes = MAIN_SCOPES
+    # nothing tuned: every launch takes its variant's builtin tile
+    tuned = sorted([*source_artifacts(),
+                    *(k for k in os.environ if k.startswith("REPRO_TUNED"))])
+    if tuned:
+        raise AssertionError(f"the main path must run the builtin tiles: "
+                             f"{tuned}")
+    tuning.last_resolved.clear()
     per_scope = ScopeLaunches()
     logging.getLogger("scope.orchestrate").addHandler(per_scope)
     with tempfile.TemporaryDirectory() as tmp:
@@ -818,7 +997,9 @@ def phase_main_path() -> dict:
     log(f"main path: {len(records)} records from {', '.join(scopes)} in "
         f"{wall:.1f} s on {ctx['device_kind']}; launches {launches}; by "
         f"variant {by_variant} (simt_linalg: the linalg scope's, all "
-        f"matmul_rect)")
+        f"matmul_rect); last tile each: "
+        + "; ".join(f"{k} {v} {tile_str(c)}"
+                    for k, (_, v, c) in sorted(tuning.last_resolved.items())))
     for name, r in records.items():
         if name.startswith(("mxu/", "histo/", "nn/", "linalg/")):
             log(f"  {name}: {r['real_time']:.3f} {r['time_unit']} "
@@ -888,10 +1069,12 @@ PIPELINE_SCOPES = ["mxu", "histo", "linalg"]
 PIPELINE_MIN_TIME = "0.02"
 
 
-def repro_torch(*args, timeout=600) -> subprocess.CompletedProcess:
+def repro_torch(*args, timeout=600, env_extra=None
+                ) -> subprocess.CompletedProcess:
     """``python -m repro_torch <args>`` in a child process from the
-    checkout's ``src``; its wall seconds on the result's ``wall_s``."""
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+    checkout's ``src`` (with ``env_extra`` in its environment); its wall
+    seconds on the result's ``wall_s``."""
+    env = dict(os.environ, **(env_extra or {}), PYTHONPATH=os.pathsep.join(
         filter(None, [os.path.join(ROOT, "src"),
                       os.environ.get("PYTHONPATH")])))
     t0 = time.perf_counter()
@@ -1046,6 +1229,82 @@ def phase_pipeline() -> dict:
     return facts
 
 
+#: The tune phase: each tunable family of the main path's scopes, with
+#: the arguments that narrow its instance, searched through the CLI.
+TUNE_FAMILIES = [("mxu/matmul", ["--param", "n=1024"]),
+                 ("linalg/matmul_rect", []), ("nn/rmsnorm", []),
+                 ("nn/flash_attention_cuda", []), ("nn/ssd_scan_cuda", [])]
+TUNE_ARGS = ["--budget", "8", "--benchmark_min_time", "0.02", "--no-report"]
+#: Artifacts and trial records of the tune phase: under build/, never in
+#: the source tree.
+TUNE_DIR = os.path.join(ROOT, "build", "tune")
+
+
+def source_artifacts() -> dict:
+    """Every ``tuned.json`` in the port's source tree, with its bytes."""
+    found = {}
+    for path in glob.glob(os.path.join(ROOT, "src", "repro_torch",
+                                       "kernels", "*", "tuned.json")):
+        with open(path, "rb") as f:
+            found[path] = f.read()
+    return found
+
+
+def phase_tune() -> list:
+    """``python -m repro_torch tune`` for every family of
+    ``TUNE_FAMILIES`` on the card, artifacts under ``TUNE_DIR``."""
+    card = torch.cuda.get_device_name(0)
+    before = source_artifacts()
+    shutil.rmtree(TUNE_DIR, ignore_errors=True)
+    tuned_dir = os.path.join(TUNE_DIR, "tuned")
+    results = os.path.join(TUNE_DIR, "results")
+    rows = []
+    for family, extra in TUNE_FAMILIES:
+        run_id = family.replace("/", "_")
+        r = repro_torch("tune", family, *TUNE_ARGS, *extra, "--results-dir",
+                        results, "--run-id", run_id,
+                        env_extra={tuning.DIR_ENV: tuned_dir})
+        if r.returncode != 0:
+            raise AssertionError(f"tune {family} exited {r.returncode}:\n"
+                                 f"{r.stderr[-3000:]}")
+        with open(os.path.join(results, run_id, "tune.json")) as f:
+            summary = json.load(f)
+        trials = summary["search"]["trials"]
+        failed = [t for t in trials if t.get("error")]
+        if failed:
+            raise AssertionError(f"tune {family}: failed trials {failed}")
+        kernel = summary["kernel"]
+        with open(os.path.join(tuned_dir, kernel, "tuned.json")) as f:
+            entries = json.load(f)["devices"][card]
+        variant, entry = next(
+            (v, e) for v, e in entries.items()
+            if e["source"]["run_id"] == run_id)
+        base, best = summary["baseline"], summary["best"]
+        if entry["config"] != best["params"]:
+            raise AssertionError(f"tune {family}: artifact {entry} is not "
+                                 f"the winner {best}")
+        row = {"family": family, "instance": summary["instance"],
+               "kernel": kernel, "variant": variant,
+               "builtin": base["params"],
+               "builtin_ms": base["metrics"]["real_time_s"] * 1e3,
+               "winner": best["params"],
+               "winner_ms": best["metrics"]["real_time_s"] * 1e3,
+               "speedup": summary["speedup"], "trials": len(trials),
+               "budget": 8, "wall_s": r.wall_s,
+               "trial_ms": [[t["params"], t["metrics"]["real_time_s"] * 1e3]
+                            for t in trials]}
+        log(f"tune {family} ({variant}) at {row['instance']}: builtin "
+            f"{tile_str(row['builtin'])} {row['builtin_ms']:.4f} ms, "
+            f"winner {tile_str(row['winner'])} {row['winner_ms']:.4f} ms, "
+            f"speedup {row['speedup']:.3f}x, {row['trials']} trials, "
+            f"{r.wall_s:.1f} s")
+        rows.append(row)
+    if source_artifacts() != before:
+        raise AssertionError("the tune phase wrote a tuned.json into the "
+                             "source tree")
+    return rows
+
+
 #: The host steps of one wrapper call, each timed alone over
 #: ``HOST_CALLS`` calls (host clock, the device synchronised at the end
 #: of each run).  Shapes whose device time stays below the host's, so
@@ -1068,9 +1327,11 @@ def host_us(fn, calls: int = HOST_CALLS) -> float:
 
 def phase_host_path() -> dict:
     """Split a wrapper call's host time: the public function (argument
-    checks), the custom_op dispatch, and inside the launch function the
-    output allocation, the device and stream lookup, the library lookup,
-    the ctypes call (which enqueues the launches) and ``_build.check``."""
+    checks, and within them for flash the tile's resolution through the
+    tuning registry), the custom_op dispatch, and inside the launch
+    function the output allocation, the device and stream lookup, the
+    library lookup, the ctypes call (which enqueues the launches) and
+    ``_build.check``."""
     dev = torch.device("cuda", 0)
 
     def lookup():
@@ -1091,9 +1352,11 @@ def phase_host_path() -> dict:
     f_out = torch.empty_like(q)
     part = torch.empty(flash_ops.FFMA_SPLITS * B * S * H * (D + 2),
                        device=dev)
+    tile = flash_ops.resolve_tile(q)[2]
+    bq, bk = tile["bq"], tile["bk"]
     f_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), f_out.data_ptr(),
               part.data_ptr(), B, S, S, H, K, D, 1, 1.0 / math.sqrt(D),
-              lookup())
+              bq, bk, lookup())
     ffma = getattr(flib, flash_ops._SYMBOLS["ffma", torch.float32])
     steps = {
         "histogram": {
@@ -1109,9 +1372,10 @@ def phase_host_path() -> dict:
             "check": lambda: _build.check(hlib, 0, "histogram")},
         "flash_attention": {
             "call": lambda: flash_attention(q, k, v),
-            "op": lambda: torch.ops.repro_torch.flash_attention(q, k, v,
-                                                                True),
-            "launch": lambda: flash_ops._launch(q, k, v, True),
+            "op": lambda: torch.ops.repro_torch.flash_attention(
+                q, k, v, True, bq, bk),
+            "resolve": lambda: flash_ops.resolve_tile(q),
+            "launch": lambda: flash_ops._launch(q, k, v, True, bq, bk),
             "alloc": lambda: (torch.empty_like(q), torch.empty(
                 part.numel(), device=dev)),
             "lookup": lookup,
@@ -1133,6 +1397,10 @@ def phase_host_path() -> dict:
             "build_check": t["check"],
             "rest_of_launch": t["launch"] - t["alloc"] - t["lookup"]
             - t["load"] - t["ctypes"] - t["check"]}
+        if "resolve" in t:
+            # the tile's resolution (device key, registry, validation,
+            # shared-memory lookup): part of the argument checks
+            split[name]["tuning_resolve"] = t["resolve"]
         log(f"host path {name} ({HOST_CALLS} calls each, us a call): "
             + ", ".join(f"{k} {v:.2f}" for k, v in split[name].items()))
     return split
@@ -1147,12 +1415,14 @@ def main() -> int:
     launches, by_variant = phase_main_path()
     idle = phase_idle_share()
     pipeline = phase_pipeline()
+    tune = phase_tune()
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["sass"] = sass[k["name"]]
         if k["name"] in by_variant:
             k["launches_by_variant"] = by_variant[k["name"]]
     print(json.dumps({"pipeline": pipeline}), flush=True)
+    print(json.dumps({"tune": tune}), flush=True)
     print(json.dumps({"host_path_us": host, "main_path_idle": idle}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

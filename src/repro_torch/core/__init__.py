@@ -16,7 +16,7 @@ The same public surface for scope authors as ``repro.core``::
     SCOPE = Scope(name="myscope", register=_register)
 """
 from .benchmark import (Benchmark, ParamSpace, Params, State, SkipError,
-                        match_params, parse_param_filter)
+                        Tunable, match_params, parse_param_filter)
 from .errorcheck import ScopeError, check_finite, check_shape, checked, sync
 from .flags import FLAGS, FlagRegistry
 from .hooks import HOOKS, HookChain
@@ -36,7 +36,7 @@ from .scope import BUILTIN_SCOPES, Scope, ScopeManager
 from .sysinfo import H100_PCIE, H100_SXM, build_context, target_hardware
 
 __all__ = [
-    "Benchmark", "ParamSpace", "Params", "State", "SkipError",
+    "Benchmark", "ParamSpace", "Params", "State", "SkipError", "Tunable",
     "match_params", "parse_param_filter",
     "ScopeError", "check_finite", "check_shape", "checked", "sync",
     "FLAGS", "FlagRegistry", "HOOKS", "HookChain", "get_logger",

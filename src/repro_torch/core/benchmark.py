@@ -3,8 +3,9 @@
 A copy of ``repro.core.benchmark`` (the JAX package's module) kept
 import-free of it: instance names, duplicate rejection and the State
 protocol are byte-identical, so documents from both packages pair by
-name.  The tuning declaration and registration-time source capture wait
-for the tune and lint slices.
+name.  The tunable-kernel declaration (``Benchmark.set_tunable``, read
+by ``python -m repro_torch tune``) is the reference's; registration-time
+source capture waits for the lint slice.
 
 SCOPE provides "the entire Google Benchmark library ... to configure and
 register the benchmark code".  This module reimplements the parts of that
@@ -451,6 +452,29 @@ BenchmarkFn = Callable[[State], None]
 FixtureFn = Callable[[Params], Any]
 
 
+@dataclass(frozen=True)
+class Tunable:
+    """A family's tunable-kernel declaration (``python -m repro_torch
+    tune``).
+
+    ``kernel`` names the :mod:`repro_torch.kernels.tuning` artifact the
+    search writes; ``space`` is the knob space searched (axes must be
+    that kernel's knobs); ``instance`` is a parameter filter (axis →
+    formatted value) selecting which point of the family's sweep each
+    trial drives.  The core stays kernel-agnostic — knob validity is
+    checked by the tune CLI against the tuning registry, and the
+    variant by the wrapper the instance calls.
+    """
+
+    kernel: str
+    space: ParamSpace
+    instance: Tuple[Tuple[str, str], ...] = ()
+
+    def instance_filter(self) -> Optional[Dict[str, List[str]]]:
+        """The declaration's filter in ``--param`` shape (None if empty)."""
+        return {k: [v] for k, v in self.instance} or None
+
+
 @dataclass
 class Benchmark:
     """A registered benchmark family (body + parameter space + metadata).
@@ -478,6 +502,10 @@ class Benchmark:
     # Meter instances) taking precedence over RunOptions.meters
     sync_fn: Optional[Callable[[Any], Any]] = None
     meters: Optional[List[Any]] = None
+    # tunable-kernel declaration (python -m repro_torch tune): which
+    # repro_torch.kernels.tuning artifact this family's measurements
+    # feed, the knob space to search, and the instance point to drive
+    tunable: Optional[Tunable] = None
     labels: Dict[str, str] = field(default_factory=dict)
     doc: str = ""
 
@@ -529,6 +557,30 @@ class Benchmark:
             if isinstance(m, str):
                 validate_meter_name(m)
         self.meters = list(meters)
+        return self
+
+    def set_tunable(self, kernel: str, space: Optional[ParamSpace] = None,
+                    instance: Optional[Dict[str, Any]] = None,
+                    **axes: Sequence[Any]) -> "Benchmark":
+        """Declare the tunable kernel this family measures::
+
+            matmul.set_tunable("matmul", bm=[64, 128], bn=[64, 128],
+                               bk=[64],
+                               instance={"backend": "cuda",
+                                         "dtype": "bf16"})
+
+        ``python -m repro_torch tune <family>`` searches the knob space,
+        runs this family's ``instance`` point per trial, and writes the
+        winner as the artifact entry of the variant and card it ran."""
+        if space is not None and axes:
+            raise ValueError("pass a ParamSpace or keyword axes, not both")
+        space = space if space is not None else ParamSpace.product(**axes)
+        if not len(space):
+            raise ValueError(
+                f"benchmark {self.name!r}: tunable knob space is empty")
+        inst = tuple(sorted((k, format_value(v))
+                            for k, v in (instance or {}).items()))
+        self.tunable = Tunable(kernel=kernel, space=space, instance=inst)
         return self
 
     # -- GB-style fluent sweep builders -----------------------------------

@@ -51,6 +51,27 @@ EXAMPLES: Dict[str, List[Tuple[str, str]]] = {
         ("plan only one backend's instances of the typed spaces",
          "python -m repro_torch plan --param backend=cuda"),
     ],
+    "tune": [
+        ("screen + hill-climb the matmul tile space under a 16-trial "
+         "budget; the winner becomes the kernel's tuned.json default "
+         "for the variant and card it ran",
+         "python -m repro_torch tune mxu/matmul --budget 16 --seed 0"),
+        ("the same for the 1024-point bf16 instance only, with the "
+         "artifact kept out of the source tree",
+         "python -m repro_torch tune mxu/matmul --param n=1024 "
+         "--output build/tuned/matmul.json"),
+        ("spend the budget on configs a prior tune run measured cheapest",
+         "python -m repro_torch tune mxu/matmul --budget 8 "
+         "--costs results/20260731T120000-42"),
+        ("maximize the cost-model FLOP rate instead of minimizing wall "
+         "time",
+         "python -m repro_torch tune mxu/matmul --objective "
+         "flops_per_second --budget 12"),
+        ("screening only: rank the axes by sensitivity without refining",
+         "python -m repro_torch tune nn/rmsnorm --strategy screening"),
+        ("list every family that declares a tunable kernel space",
+         "python -m repro_torch tune --list"),
+    ],
     "compare": [
         ("mean/stddev-aware diff of two runs (exit 1 on regression)",
          "python -m repro_torch compare results/baseline.json "

@@ -240,18 +240,20 @@ def _verdict(prev: Optional[Record], mean: Optional[float],
 
 def append_run(results_dir: str, doc: Dict[str, Any],
                run_id: Optional[str] = None,
-               threshold: float = 0.10, sigmas: float = 2.0
-               ) -> List[Record]:
+               threshold: float = 0.10, sigmas: float = 2.0,
+               tag: Optional[str] = None) -> List[Record]:
     """Append one record per benchmark instance of a merged document.
 
     Returns the appended records ([] when the run is already recorded —
     a resumed run merges twice but must not double-append).  ``ts`` and
     the sysinfo digest come from the document's own context, so history
-    records stay reproducible from the run artifacts.  The reference
-    also writes a record's ``tag`` (tuning trials), ``fingerprint`` and
-    ``cached`` (delta runs); the port has neither tuning nor delta runs
-    yet, so its records carry none of them.  Its readers still skip
-    ``cached`` records, as the reference's do, in a shared history.
+    records stay reproducible from the run artifacts.  ``tag`` marks
+    what produced the run (``"tune"`` for autotuning trials) so
+    consumers can tell trial records from ordinary benchmark runs.  The
+    reference also writes a record's ``fingerprint`` and ``cached``
+    (delta runs); the port has no delta runs yet, so its records carry
+    neither.  Its readers still skip ``cached`` records, as the
+    reference's do, in a shared history.
     """
     from .baseline import collect_stats
     ctx = doc.get("context", {})
@@ -285,6 +287,8 @@ def append_run(results_dir: str, doc: Dict[str, Any],
             "mean_s": mean, "stddev_s": stddev, "n": st.n,
             "errors": st.errors, "sysinfo": digest, "verdict": verdict,
         }
+        if tag:
+            rec["tag"] = tag
         if ratio is not None:
             rec["ratio"] = round(ratio, 6)
         if name in counters:

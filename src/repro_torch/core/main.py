@@ -6,6 +6,7 @@ The port of ``repro.core.main``::
     python -m repro_torch [run] [flags...]       # run benchmarks (default)
     python -m repro_torch plan [flags...]        # print the work plan + costs
     python -m repro_torch compare A.json B.json  # diff two result documents
+    python -m repro_torch tune <family> [...]    # autotune a kernel's tiles
 
 Startup follows the reference's run stage:
 
@@ -26,8 +27,8 @@ Startup follows the reference's run stage:
   7. optionally diff against / store a baseline
      (:mod:`repro_torch.core.baseline`)
 
-The reference's other subcommands (``ci``, ``lint``, ``tune``,
-``report``, ``query``, ``store``) and its ``--since``, ``--lint`` and
+The reference's other subcommands (``ci``, ``lint``, ``report``,
+``query``, ``store``) and its ``--since``, ``--lint`` and
 ``--strict`` run flags are not ported yet: each is refused with "not yet
 ported", never ignored.  The reference also stamps ``fingerprints`` on
 every run's context; the port leaves that key out until it has
@@ -59,7 +60,7 @@ from .scope import ScopeManager
 log = scope_logging.get_logger("main")
 
 #: Subcommands of ``python -m repro`` that later slices port.
-NOT_YET_PORTED_COMMANDS = ("ci", "lint", "tune", "report", "query", "store")
+NOT_YET_PORTED_COMMANDS = ("ci", "lint", "report", "query", "store")
 #: ``run`` flags of the reference that need the fingerprints or the
 #: linter, which later slices port.
 NOT_YET_PORTED_FLAGS = ("--since", "--lint", "--strict")
@@ -76,6 +77,8 @@ commands:
   plan      print the work plan with predicted costs and worker bins
   compare   mean/stddev-aware diff of two result documents (either
             package's)
+  tune      search a tunable family's kernel tile space and write the
+            winner as the kernel's tuned.json default for that card
 
 `python -m repro_torch COMMAND --help` shows each command's flags and
 examples.
@@ -96,6 +99,9 @@ def main(argv: Optional[List[str]] = None,
         return compare_main(argv[1:])
     if argv and argv[0] == "plan":
         return plan_main(argv[1:], scope_modules)
+    if argv and argv[0] == "tune":
+        from .tune import tune_main
+        return tune_main(argv[1:], scope_modules)
     if argv and argv[0] == "run":
         argv = argv[1:]
     return run_main(argv, scope_modules)

@@ -30,6 +30,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: Loaded libraries by kernel name (one load per process).
 _LOADED: Dict[str, ctypes.CDLL] = {}
+#: Device index -> per-block shared-memory opt-in limit, in bytes.
+_SMEM_OPTIN: Dict[int, int] = {}
+#: Device index -> streaming multiprocessors.
+_SMS: Dict[int, int] = {}
+#: ``shared_memory_optin``'s argument types, for a kernel's signatures.
+SMEM_OPTIN_SIGNATURE = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
 
 
 def kernel_names() -> List[str]:
@@ -138,3 +144,28 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
         msg: Optional[bytes] = lib.kernel_error_string(code)
         raise RuntimeError(f"{what}: CUDA error {code} "
                            f"({msg.decode() if msg else 'unknown'})")
+
+
+def shared_memory_optin(lib: ctypes.CDLL, index: int) -> int:
+    """The largest shared memory a block may opt in to on device
+    ``index`` (``cudaDevAttrMaxSharedMemoryPerBlockOptin``, through the
+    library's ``shared_memory_optin``: torch's device properties do not
+    carry it), asked once a device."""
+    limit = _SMEM_OPTIN.get(index)
+    if limit is None:
+        got = ctypes.c_int(0)
+        check(lib, lib.shared_memory_optin(index, ctypes.byref(got)),
+              "shared_memory_optin")
+        limit = _SMEM_OPTIN[index] = got.value
+    return limit
+
+
+def multiprocessors(index: int) -> int:
+    """The streaming multiprocessors of device ``index``, asked once a
+    device (the wrappers size grids and tiles by them)."""
+    sms = _SMS.get(index)
+    if sms is None:
+        import torch
+        sms = _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return sms

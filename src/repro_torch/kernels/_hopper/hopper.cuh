@@ -231,6 +231,21 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB));
 }
 
+// D[64x64] (+)= A[64x16] . B[16x64], A and B from shared memory.
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+    uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : HOPPER_D8(0), HOPPER_D8(8), HOPPER_D8(16), HOPPER_D8(24)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransB));
+}
+
 // D[64x16] (+)= A[64x16] . B[16x16], A from registers (a[4]: the
 // accumulator fragment's layout, two bf16 a register), B from shared memory.
 template <int TransB>

@@ -63,6 +63,14 @@
 //    one v buffer during tile t+1's Q K^T.  One v buffer and P^T over the
 //    consumed k stage keep a block at 69.6 KB for D = 64: three blocks of
 //    two warps an SM.
+// The figures above are the default tile, 64 query rows by 64 keys.  The
+// tile is a run-time knob: the C entry takes bq in {64, 128} and bk in
+// {32, 64} and dispatches with a switch to that instantiation (per head
+// size), refusing any other tile (mirrored in ops.py's TILES).  A thread
+// keeps its 8 x 8 scores, so a block has bq * bk / 64 threads, bk / 8 of
+// them sharing each row's keys and D * 8 / bk of O's columns; bk = 32
+// doubles a thread's share of O.  The wgmma variant's 128 x 128 tile is
+// fixed.
 // Each score is one fmaf chain over d in order from 0, the order of the
 // float32 reference's product: with inputs whose scores reach tens, where
 // float32 attention itself lies several times 2e-5 from the float64 one,
@@ -416,72 +424,80 @@ __device__ __forceinline__ void stage_rows(float* dst, int ld,
   }
 }
 
-constexpr int F_BQ = 64;        // query rows per block
-constexpr int F_BKV = 64;       // keys per tile
-constexpr int F_THREADS = 64;   // 8 x 8 threads of 8 x 8 scores
 constexpr int F_SPLITS = 4;     // key ranges a query tile is split into
 
-template <int D>
+// The ffma tile: BQ query rows a block, BK keys a tile (BQ in {64, 128},
+// BK in {32, 64}; 64 x 64 by default).  A thread holds 8 x 8 scores, so a
+// block has BQ * BK / 64 threads: TX = BK / 8 of them share each row's
+// keys and TY = BQ / 8 share the rows.
+template <int D, int BQ, int BK>
 struct FfTiles {
+  static constexpr int THREADS = BQ * BK / 64;
+  static constexpr int TX = BK / 8;               // threads along the keys
   // rows of q, k and v: 4 words mod 32, so that the 8 lanes of a
   // quarter-warp reading 16 bytes of 8 consecutive rows hit 32 banks
   static constexpr int LD = D + 4;
-  static constexpr int LP = F_BQ + 4;            // rows of P^T
-  static constexpr int V4 = D >= 32 ? 4 : 2;     // contiguous output columns
-  static constexpr int NC = D / 8 / V4;          // column groups a thread
-  static constexpr int Q_FLOATS = F_BQ * LD;
-  static constexpr int KV_FLOATS = F_BKV * LD;
-  static constexpr int P_FLOATS = F_BKV * LP;
-  // P^T overlays the consumed k tile where it fits (D >= 64)
+  static constexpr int LP = BQ + 4;               // rows of P^T
+  static constexpr int OC = D / TX;               // output columns a thread
+  static constexpr int V4 = OC >= 4 ? 4 : 2;      // contiguous output columns
+  static constexpr int NC = OC / V4;              // column groups a thread
+  static constexpr int Q_FLOATS = BQ * LD;
+  static constexpr int KV_FLOATS = BK * LD;
+  static constexpr int P_FLOATS = BK * LP;
+  // P^T overlays the consumed k tile where it fits (D >= BQ)
   static constexpr bool P_IN_K = KV_FLOATS >= P_FLOATS;
-  // q, two stages of k, one of v: 69.6 KB at D = 64, three blocks an SM
+  // q, two stages of k, one of v: 69.6 KB at D = 64 and 64 x 64, three
+  // blocks an SM
   static constexpr int SMEM =
       4 * (Q_FLOATS + 3 * KV_FLOATS + (P_IN_K ? 0 : P_FLOATS));
 };
 
 // the first key of each of a query tile's key ranges: a multiple of the
-// tile, so that no tile straddles two ranges
-inline int split_len(int Sk) {
+// key tile, so that no tile straddles two ranges
+inline int split_len(int Sk, int bk) {
   const int per = (Sk + F_SPLITS - 1) / F_SPLITS;
-  return (per + F_BKV - 1) / F_BKV * F_BKV;
+  return (per + bk - 1) / bk * bk;
 }
 
-// max over the 8 lanes of a row (lane % 8 = tx)
-__device__ __forceinline__ float row8_max(float v) {
+// max and sum over the TX lanes of a row (lane % TX = tx)
+template <int TX>
+__device__ __forceinline__ float row_max(float v) {
 #pragma unroll
-  for (int off = 1; off < 8; off <<= 1)
+  for (int off = 1; off < TX; off <<= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
-__device__ __forceinline__ float row8_sum(float v) {
+template <int TX>
+__device__ __forceinline__ float row_sum(float v) {
 #pragma unroll
-  for (int off = 1; off < 8; off <<= 1)
+  for (int off = 1; off < TX; off <<= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
 
-// Thread (ty, tx) = (tid / 8, tid % 8) holds rows 4 ty + (i & 3) + 32 (i >>
-// 2) and keys tx + 8 j of the score tile (i, j < 8), and the same rows and
-// columns 8 V4 c + V4 tx + e of O.  Each score is one fmaf chain over d in
-// order from 0, the float32 reference's own order.
-template <int D>
-__global__ void __launch_bounds__(F_THREADS)
+// Thread (ty, tx) = (tid / TX, tid % TX) holds rows 4 ty + (i & 3) + BQ/2
+// (i >> 2) and keys tx + TX j of the score tile (i, j < 8), and the same
+// rows and columns TX V4 c + V4 tx + e of O.  Each score is one fmaf chain
+// over d in order from 0, the float32 reference's own order.
+template <int D, int BQ, int BK>
+__global__ void __launch_bounds__(BQ * BK / 64)
 flash_attention_ffma_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
                             const float* __restrict__ v,
                             float* __restrict__ out, float* __restrict__ part,
                             int B, int Sq, int Sk, int H, int K, int causal,
                             float scale, int L, int aligned) {
-  using Tl = FfTiles<D>;
+  using Tl = FfTiles<D, BQ, BK>;
   constexpr int LD = Tl::LD, LP = Tl::LP, V4 = Tl::V4, NC = Tl::NC;
+  constexpr int TX = Tl::TX, OC = Tl::OC, HQ = BQ / 2;
   extern __shared__ float4 smem_ff[];
-  float* qs = reinterpret_cast<float*>(smem_ff);   // [F_BQ][LD]
-  float* ks = qs + Tl::Q_FLOATS;                    // [2][F_BKV][LD]
-  float* vs = ks + 2 * Tl::KV_FLOATS;               // [F_BKV][LD]
-  float* ps_own = vs + Tl::KV_FLOATS;               // [F_BKV][LP] if apart
+  float* qs = reinterpret_cast<float*>(smem_ff);   // [BQ][LD]
+  float* ks = qs + Tl::Q_FLOATS;                    // [2][BK][LD]
+  float* vs = ks + 2 * Tl::KV_FLOATS;               // [BK][LD]
+  float* ps_own = vs + Tl::KV_FLOATS;               // [BK][LP] if apart
 
   // (query tile, batch and head, key range), heaviest query tiles first
-  const int nq = (Sq + F_BQ - 1) / F_BQ;
+  const int nq = (Sq + BQ - 1) / BQ;
   const int HB = H * B;
   const int split = static_cast<int>(blockIdx.x) % F_SPLITS;
   const int rest = static_cast<int>(blockIdx.x) / F_SPLITS;
@@ -489,12 +505,12 @@ flash_attention_ffma_kernel(const float* __restrict__ q,
   const int h = rest % HB % H;
   const int b = rest % HB / H;
   const int kh = h / (H / K);
-  const int q0 = qt * F_BQ;
-  const int k_end = causal ? min(Sk, q0 + F_BQ) : Sk;
+  const int q0 = qt * BQ;
+  const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
   const int nsplit = (k_end + L - 1) / L;
   if (split >= nsplit) return;
   const int kr0 = split * L;
-  const int ntiles = (min(k_end, kr0 + L) - kr0 + F_BKV - 1) / F_BKV;
+  const int ntiles = (min(k_end, kr0 + L) - kr0 + BK - 1) / BK;
   const size_t q_stride = static_cast<size_t>(H) * D;
   const size_t kv_stride = static_cast<size_t>(K) * D;
   const float* qb = q + (static_cast<size_t>(b) * Sq * H + h) * D;
@@ -504,22 +520,22 @@ flash_attention_ffma_kernel(const float* __restrict__ q,
   // cp.async groups in the order they are made: (q, k 0, v 0), k 1, then after each
   // tile t's P.V: v t+1 (into the one v buffer), k t+2 (into t's stage);
   // so k t+1 loads during all of tile t and v t+1 during tile t+1's Q K^T
-  stage_rows<D>(qs, LD, qb, q_stride, q0, F_BQ, Sq, aligned);
-  stage_rows<D>(ks, LD, kb, kv_stride, kr0, F_BKV, Sk, aligned);
-  stage_rows<D>(vs, LD, vb, kv_stride, kr0, F_BKV, Sk, aligned);
+  stage_rows<D>(qs, LD, qb, q_stride, q0, BQ, Sq, aligned);
+  stage_rows<D>(ks, LD, kb, kv_stride, kr0, BK, Sk, aligned);
+  stage_rows<D>(vs, LD, vb, kv_stride, kr0, BK, Sk, aligned);
   cp_async_commit();
   if (ntiles > 1) {
-    stage_rows<D>(ks + Tl::KV_FLOATS, LD, kb, kv_stride, kr0 + F_BKV, F_BKV,
-                  Sk, aligned);
+    stage_rows<D>(ks + Tl::KV_FLOATS, LD, kb, kv_stride, kr0 + BK, BK, Sk,
+                  aligned);
     cp_async_commit();
   }
 
-  const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
-  float o[8][D / 8];
+  const int ty = threadIdx.x / TX, tx = threadIdx.x % TX;
+  float o[8][OC];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) o[i][c] = 0.f;
+    for (int c = 0; c < OC; ++c) o[i][c] = 0.f;
   float m[8], lsum[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -538,7 +554,7 @@ flash_attention_ffma_kernel(const float* __restrict__ q,
       else cp_async_wait<1>();
     }
     __syncthreads();
-    const int k0 = kr0 + tt * F_BKV;
+    const int k0 = kr0 + tt * BK;
     float* kt = ks + (tt & 1) * Tl::KV_FLOATS;
     const float* vt = vs;
 
@@ -555,11 +571,11 @@ flash_attention_ffma_kernel(const float* __restrict__ q,
 #pragma unroll
         for (int i = 0; i < 4; ++i)
           qv[i] = *reinterpret_cast<const float4*>(
-              qs + (4 * ty + i + 32 * hf) * LD + d);
+              qs + (4 * ty + i + HQ * hf) * LD + d);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const float4 kv =
-              *reinterpret_cast<const float4*>(kt + (tx + 8 * j) * LD + d);
+              *reinterpret_cast<const float4*>(kt + (tx + TX * j) * LD + d);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             float& acc = s[4 * hf + i][j];
@@ -574,16 +590,16 @@ flash_attention_ffma_kernel(const float* __restrict__ q,
 
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const int qp = q0 + 4 * ty + (i & 3) + 32 * (i >> 2);
+      const int qp = q0 + 4 * ty + (i & 3) + HQ * (i >> 2);
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int kp = k0 + tx + 8 * j;
+        const int kp = k0 + tx + TX * j;
         const bool keep = kp < Sk && (!causal || kp <= qp);
         s[i][j] = keep ? s[i][j] * scale : -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
-      const float m_new = fmaxf(m[i], row8_max(mx));
+      const float m_new = fmaxf(m[i], row_max<TX>(mx));
       // a row with no unmasked key yet keeps p = 0 and corr = 0
       const float m_use = m_new == -INFINITY ? 0.f : m_new;
       const float corr = expf(m[i] - m_use);
@@ -596,7 +612,7 @@ flash_attention_ffma_kernel(const float* __restrict__ q,
       }
       lsum[i] = lsum[i] * corr + sum;
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c) o[i][c] *= corr;
+      for (int c = 0; c < OC; ++c) o[i][c] *= corr;
     }
 
     // P^T [key][row], four rows a 16-byte store
@@ -606,7 +622,8 @@ flash_attention_ffma_kernel(const float* __restrict__ q,
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf)
-        *reinterpret_cast<float4*>(ps + (tx + 8 * j) * LP + 32 * hf + 4 * ty) =
+        *reinterpret_cast<float4*>(ps + (tx + TX * j) * LP + HQ * hf +
+                                   4 * ty) =
             make_float4(s[4 * hf][j], s[4 * hf + 1][j], s[4 * hf + 2][j],
                         s[4 * hf + 3][j]);
     // v tt is in; k tt+1 may still be in flight
@@ -616,15 +633,15 @@ flash_attention_ffma_kernel(const float* __restrict__ q,
 
     // O += P V, key by key in order
 #pragma unroll 4
-    for (int kk = 0; kk < F_BKV; ++kk) {
+    for (int kk = 0; kk < BK; ++kk) {
       const float4 pa = *reinterpret_cast<const float4*>(ps + kk * LP + 4 * ty);
       const float4 pb =
-          *reinterpret_cast<const float4*>(ps + kk * LP + 32 + 4 * ty);
+          *reinterpret_cast<const float4*>(ps + kk * LP + HQ + 4 * ty);
       const float p[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         float vv[V4];
-        const float* vp = vt + kk * LD + 8 * V4 * c + V4 * tx;
+        const float* vp = vt + kk * LD + TX * V4 * c + V4 * tx;
         if constexpr (V4 == 4) {
           const float4 x = *reinterpret_cast<const float4*>(vp);
           vv[0] = x.x; vv[1] = x.y; vv[2] = x.z; vv[3] = x.w;
@@ -641,12 +658,11 @@ flash_attention_ffma_kernel(const float* __restrict__ q,
     }
     __syncthreads();   // v and this k stage (P^T) are consumed
     if (tt + 1 < ntiles) {
-      stage_rows<D>(vs, LD, vb, kv_stride, k0 + F_BKV, F_BKV, Sk, aligned);
+      stage_rows<D>(vs, LD, vb, kv_stride, k0 + BK, BK, Sk, aligned);
       cp_async_commit();
     }
     if (tt + 2 < ntiles) {
-      stage_rows<D>(kt, LD, kb, kv_stride, k0 + 2 * F_BKV, F_BKV, Sk,
-                    aligned);
+      stage_rows<D>(kt, LD, kb, kv_stride, k0 + 2 * BK, BK, Sk, aligned);
       cp_async_commit();
     }
   }
@@ -656,8 +672,8 @@ flash_attention_ffma_kernel(const float* __restrict__ q,
   const size_t rows = static_cast<size_t>(B) * Sq * H;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int qp = q0 + 4 * ty + (i & 3) + 32 * (i >> 2);
-    const float l = row8_sum(lsum[i]);
+    const int qp = q0 + 4 * ty + (i & 3) + HQ * (i >> 2);
+    const float l = row_sum<TX>(lsum[i]);
     if (qp >= Sq) continue;
     const size_t row = (static_cast<size_t>(b) * Sq + qp) * H + h;
     float* dst = out + row * D;
@@ -673,7 +689,7 @@ flash_attention_ffma_kernel(const float* __restrict__ q,
     }
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      float* op = dst + 8 * V4 * c + V4 * tx;
+      float* op = dst + TX * V4 * c + V4 * tx;
       if constexpr (V4 == 4)
         *reinterpret_cast<float4*>(op) =
             make_float4(o[i][4 * c] * inv, o[i][4 * c + 1] * inv,
@@ -686,17 +702,18 @@ flash_attention_ffma_kernel(const float* __restrict__ q,
 }
 
 // Merges the key ranges of the query tiles that had several: one thread
-// an output element.
+// an output element.  `bq` is the ffma kernel's query tile.
 __global__ void __launch_bounds__(256)
 flash_attention_ffma_combine_kernel(const float* __restrict__ part,
                                     float* __restrict__ out, int B, int Sq,
-                                    int Sk, int H, int D, int causal, int L) {
+                                    int Sk, int H, int D, int causal, int L,
+                                    int bq) {
   const size_t rows = static_cast<size_t>(B) * Sq * H;
   const size_t idx = static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x;
   if (idx >= rows * D) return;
   const size_t row = idx / D;
   const int qp = static_cast<int>(row / H % Sq);
-  const int k_end = causal ? min(Sk, qp / F_BQ * F_BQ + F_BQ) : Sk;
+  const int k_end = causal ? min(Sk, qp / bq * bq + bq) : Sk;
   const int nsplit = (k_end + L - 1) / L;
   if (nsplit <= 1) return;   // written by the tile itself
   const float* ml = part + F_SPLITS * rows * D;
@@ -712,43 +729,69 @@ flash_attention_ffma_combine_kernel(const float* __restrict__ part,
   out[idx] = den == 0.f ? 0.f : num / den;
 }
 
-template <int D>
+template <int D, int BQ, int BK>
 int launch_ffma(const void* q, const void* k, const void* v, void* out,
                 void* part, int B, int Sq, int Sk, int H, int K, int causal,
                 float scale, cudaStream_t stream) {
-  using Tl = FfTiles<D>;
+  using Tl = FfTiles<D, BQ, BK>;
   if (Tl::SMEM > 48 * 1024) {
     const cudaError_t attr = cudaFuncSetAttribute(
-        flash_attention_ffma_kernel<D>,
+        flash_attention_ffma_kernel<D, BQ, BK>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::SMEM);
     if (attr != cudaSuccess) return static_cast<int>(attr);
   }
   const long long blocks =
-      static_cast<long long>((Sq + F_BQ - 1) / F_BQ) * H * B * F_SPLITS;
+      static_cast<long long>((Sq + BQ - 1) / BQ) * H * B * F_SPLITS;
   const long long elems = static_cast<long long>(B) * Sq * H * D;
   if (blocks > 0x7fffffffLL || (elems + 255) / 256 > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int L = split_len(Sk);
+  const int L = split_len(Sk, BK);
   const int aligned = (reinterpret_cast<uintptr_t>(q) |
                        reinterpret_cast<uintptr_t>(k) |
                        reinterpret_cast<uintptr_t>(v)) % 16 == 0;
-  flash_attention_ffma_kernel<D><<<static_cast<unsigned>(blocks), F_THREADS,
-                                   Tl::SMEM, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out),
-      static_cast<float*>(part), B, Sq, Sk, H, K, causal, scale, L, aligned);
+  flash_attention_ffma_kernel<D, BQ, BK>
+      <<<static_cast<unsigned>(blocks), Tl::THREADS, Tl::SMEM, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(out),
+          static_cast<float*>(part), B, Sq, Sk, H, K, causal, scale, L,
+          aligned);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // some query tile has several key ranges only if some sees more than L
-  const int widest =
-      causal ? std::min(Sk, (Sq + F_BQ - 1) / F_BQ * F_BQ) : Sk;
+  const int widest = causal ? std::min(Sk, (Sq + BQ - 1) / BQ * BQ) : Sk;
   if (widest <= L) return 0;
   flash_attention_ffma_combine_kernel<<<static_cast<unsigned>(
                                             (elems + 255) / 256),
                                         256, 0, stream>>>(
       static_cast<const float*>(part), static_cast<float*>(out), B, Sq, Sk,
-      H, D, causal, L);
+      H, D, causal, L, BQ);
   return static_cast<int>(cudaGetLastError());
+}
+
+// one head size's tiles: bq in {64, 128}, bk in {32, 64}
+template <int D>
+int launch_ffma_tile(const void* q, const void* k, const void* v, void* out,
+                     void* part, int B, int Sq, int Sk, int H, int K,
+                     int causal, float scale, int bq, int bk,
+                     cudaStream_t s) {
+  switch (bq * 1000 + bk) {
+    case 64064: return launch_ffma<D, 64, 64>(q, k, v, out, part, B, Sq, Sk, H, K, causal, scale, s);
+    case 64032: return launch_ffma<D, 64, 32>(q, k, v, out, part, B, Sq, Sk, H, K, causal, scale, s);
+    case 128064: return launch_ffma<D, 128, 64>(q, k, v, out, part, B, Sq, Sk, H, K, causal, scale, s);
+    case 128032: return launch_ffma<D, 128, 32>(q, k, v, out, part, B, Sq, Sk, H, K, causal, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int D>
+int ffma_smem(int bq, int bk) {
+  switch (bq * 1000 + bk) {
+    case 64064: return FfTiles<D, 64, 64>::SMEM;
+    case 64032: return FfTiles<D, 64, 32>::SMEM;
+    case 128064: return FfTiles<D, 128, 64>::SMEM;
+    case 128032: return FfTiles<D, 128, 32>::SMEM;
+    default: return -1;
+  }
 }
 
 // A call without keys: the reference's zeros over the whole output.
@@ -762,14 +805,15 @@ int zeros(void* out, int B, int Sq, int H, int D, size_t elem,
 // floats
 int launch_f32_ffma(const void* q, const void* k, const void* v, void* out,
                     void* part, int B, int Sq, int Sk, int H, int K, int D,
-                    int causal, float scale, void* stream) {
+                    int causal, float scale, int bq, int bk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ffma_smem<64>(bq, bk) < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (Sk <= 0) return zeros(out, B, Sq, H, D, sizeof(float), s);
   switch (D) {
-    case 16: return launch_ffma<16>(q, k, v, out, part, B, Sq, Sk, H, K, causal, scale, s);
-    case 32: return launch_ffma<32>(q, k, v, out, part, B, Sq, Sk, H, K, causal, scale, s);
-    case 64: return launch_ffma<64>(q, k, v, out, part, B, Sq, Sk, H, K, causal, scale, s);
-    case 128: return launch_ffma<128>(q, k, v, out, part, B, Sq, Sk, H, K, causal, scale, s);
+    case 16: return launch_ffma_tile<16>(q, k, v, out, part, B, Sq, Sk, H, K, causal, scale, bq, bk, s);
+    case 32: return launch_ffma_tile<32>(q, k, v, out, part, B, Sq, Sk, H, K, causal, scale, bq, bk, s);
+    case 64: return launch_ffma_tile<64>(q, k, v, out, part, B, Sq, Sk, H, K, causal, scale, bq, bk, s);
+    case 128: return launch_ffma_tile<128>(q, k, v, out, part, B, Sq, Sk, H, K, causal, scale, bq, bk, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -803,17 +847,19 @@ int launch_bf16_wgmma(const void* q, const void* k, const void* v, void* out,
 // size other than 16, 32, 64 or 128).  The caller guarantees B, Sq, H, K
 // > 0 with H % K == 0, B and H at most 65535, contiguous q/out [B, Sq, H,
 // D] and k/v [B, Sk, K, D] of the named type on the current device.
-// flash_attention_f32_ffma is the float32 variant and takes `part`,
-// scratch of F_SPLITS * B * Sq * H * (D + 2) floats.  flash_attention_bf16
-// is the wgmma variant and, with Sk > 0, needs 16-byte aligned q, k and v.
+// flash_attention_f32_ffma is the float32 variant: it takes `part`,
+// scratch of F_SPLITS * B * Sq * H * (D + 2) floats, and the tile (bq, bk),
+// refusing one outside its set with cudaErrorInvalidValue.
+// flash_attention_bf16 is the wgmma variant (its 128 x 128 tile is fixed)
+// and, with Sk > 0, needs 16-byte aligned q, k and v.
 extern "C" {
 
 int flash_attention_f32_ffma(const void* q, const void* k, const void* v,
                              void* out, void* part, int B, int Sq, int Sk,
                              int H, int K, int D, int causal, float scale,
-                             void* stream) {
+                             int bq, int bk, void* stream) {
   return launch_f32_ffma(q, k, v, out, part, B, Sq, Sk, H, K, D, causal,
-                         scale, stream);
+                         scale, bq, bk, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v,
@@ -821,6 +867,24 @@ int flash_attention_bf16(const void* q, const void* k, const void* v,
                          int D, int causal, float scale, void* stream) {
   return launch_bf16_wgmma(q, k, v, out, B, Sq, Sk, H, K, D, causal, scale,
                            stream);
+}
+
+// Dynamic shared memory a block of the ffma tile takes at head size D, or
+// -1 for a tile or head size outside the set.
+int flash_attention_smem_bytes(int D, int bq, int bk) {
+  switch (D) {
+    case 16: return ffma_smem<16>(bq, bk);
+    case 32: return ffma_smem<32>(bq, bk);
+    case 64: return ffma_smem<64>(bq, bk);
+    case 128: return ffma_smem<128>(bq, bk);
+    default: return -1;
+  }
+}
+
+// The largest shared memory a block may opt in to on `device`.
+int shared_memory_optin(int device, int* bytes) {
+  return static_cast<int>(cudaDeviceGetAttribute(
+      bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
 }
 
 const char* kernel_error_string(int code) {

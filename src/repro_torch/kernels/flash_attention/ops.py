@@ -4,21 +4,30 @@
 Replaces ``repro.kernels.flash_attention.ops.flash_attention`` (the
 Pallas kernel ``flash_attention_pallas``).  A CUDA tensor launches the
 CUDA kernel or raises; a CPU tensor takes the plain version in
-``ref.py``.  There is no other fallback.  The kernel picks its own tiles
-and masks ragged sequence edges, so there are no ``bq``/``bk`` knobs
-(the reference wrapper clamped them to the head counts).  On the card
-it has two variants of its own, chosen by :func:`variant`: the tensor
-cores fed by TMA for bfloat16 (``"wgmma"``) and a register-tiled
-CUDA-core body for float32 (``"ffma"``).  A call without keys writes
-zeros from the variant's C entry, with no kernel launch.
+``ref.py``.  There is no other fallback.  On the card it has two
+variants of its own, chosen by :func:`variant`: the tensor cores fed by
+TMA for bfloat16 (``"wgmma"``) and a register-tiled CUDA-core body for
+float32 (``"ffma"``).  A call without keys writes zeros from the
+variant's C entry, with no kernel launch.
+
+The ``ffma`` variant's tile (``bq`` query rows by ``bk`` keys) is a
+run-time knob, one of the instantiations in :data:`TILES`, resolved
+through :mod:`repro_torch.kernels.tuning` (kept per device and head
+size until the registry's generation moves) and validated on every
+device (the reference wrapper clamped its blocks to the head
+counts; the kernel masks ragged sequence edges instead).  The ``wgmma``
+variant's 128 x 128 tile is fixed: no family tunes it, and a ``bq`` or
+``bk`` given for a bfloat16 call raises.  The plain version ignores the
+tile.
 """
 import ctypes
 import math
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
-from .. import _build
+from .. import _build, tuning
 from .ref import flash_attention_ref
 
 #: Kernel launches made by this process (read by ``chip_smoke.py``),
@@ -35,14 +44,23 @@ _INT_MAX = 2 ** 31 - 1
 #: Key ranges a float32 query tile is split into (csrc's F_SPLITS): the
 #: ``ffma`` variant's scratch holds each range's (O, m, l).
 FFMA_SPLITS = 4
+#: The tiles the ``ffma`` variant is instantiated for, at every head size
+#: (the switch of csrc's ``launch_ffma_tile``): every (bq, bk) of the
+#: product of these sets.
+TILES = {"ffma": {"bq": (64, 128), "bk": (32, 64)}}
+#: The ``wgmma`` variant's fixed tile, passed through the custom op.
+WGMMA_TILE = {"bq": 128, "bk": 128}
 
 _SYMBOLS = {("ffma", torch.float32): "flash_attention_f32_ffma",
             ("wgmma", torch.bfloat16): "flash_attention_bf16"}
 _SIGNATURES = {
     "flash_attention_f32_ffma": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-    + [ctypes.c_float, ctypes.c_void_p],
+    + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p],
     "flash_attention_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-    + [ctypes.c_float, ctypes.c_void_p]}
+    + [ctypes.c_float, ctypes.c_void_p],
+    "flash_attention_smem_bytes": [ctypes.c_int] * 3,
+    "shared_memory_optin": _build.SMEM_OPTIN_SIGNATURE}
+_MEMO = tuning.Memo()
 
 
 def variant(dtype: torch.dtype) -> str:
@@ -52,7 +70,45 @@ def variant(dtype: torch.dtype) -> str:
     return "wgmma" if dtype == torch.bfloat16 else "ffma"
 
 
-def _launch(q, k, v, causal: bool) -> torch.Tensor:
+def resolve_tile(q: torch.Tensor, bq: Optional[int] = None,
+                 bk: Optional[int] = None
+                 ) -> Tuple[str, str, Dict[str, int]]:
+    """(device key, variant, tile) of a call on ``q``: the ``ffma``
+    tile resolved (explicit ``bq``/``bk`` first) and validated against
+    :data:`TILES` and, on the card, the device's shared memory; the
+    ``wgmma`` variant's fixed tile.  Raises ``ValueError`` for a tile
+    outside the set, or for any tile given to a bfloat16 call."""
+    which = variant(q.dtype)
+    if which == "wgmma":
+        if bq is not None or bk is not None:
+            raise ValueError("flash_attention: the bfloat16 (wgmma) "
+                             "variant's 128 x 128 tile is fixed; bq and bk "
+                             "tune the float32 (ffma) variant")
+        return tuning.device_key(q.device), which, dict(WGMMA_TILE)
+    named = bq is not None or bk is not None
+    D = q.shape[-1]
+    key = (q.get_device(), D)
+    if not named:
+        got = _MEMO.get(key)
+        if got is not None:
+            return got
+    dev = tuning.device_key(q.device)
+    cfg = tuning.resolve("flash_attention", which, device=dev, bq=bq, bk=bk)
+    tuning.validate_blocks("flash_attention", which, cfg, TILES[which])
+    if q.is_cuda:
+        lib = _build.load("flash_attention", _SIGNATURES)
+        index = q.device.index if q.device.index is not None \
+            else torch.cuda.current_device()
+        tuning.validate_blocks(
+            "flash_attention", which, cfg, TILES[which],
+            smem_bytes=lib.flash_attention_smem_bytes(D, cfg["bq"],
+                                                      cfg["bk"]),
+            smem_limit=_build.shared_memory_optin(lib, index))
+    return (dev, which, cfg) if named else \
+        _MEMO.put(key, (dev, which, cfg))
+
+
+def _launch(q, k, v, causal: bool, bq: int, bk: int) -> torch.Tensor:
     global launches
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
@@ -74,7 +130,8 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
         code = getattr(lib, _SYMBOLS[which, q.dtype])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *(t.data_ptr() for t in scratch), B, Sq, Sk, H, K, D,
-            int(causal), 1.0 / math.sqrt(D), stream)
+            int(causal), 1.0 / math.sqrt(D),
+            *((bq, bk) if which == "ffma" else ()), stream)
     _build.check(lib, code, "flash_attention")
     if Sk:   # without keys the C entry writes zeros and launches nothing
         launches += 1
@@ -84,9 +141,9 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     causal: bool) -> torch.Tensor:
+                     causal: bool, bq: int, bk: int) -> torch.Tensor:
     if q.device.type == "cuda":
-        return _launch(q, k, v, causal)
+        return _launch(q, k, v, causal, bq, bk)
     if q.device.type == "cpu":
         # contiguous, as the kernel writes it
         return flash_attention_ref(q, k, v, causal=causal).contiguous()
@@ -94,12 +151,12 @@ def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 @_flash_attention.register_fake
-def _(q, k, v, causal):
+def _(q, k, v, causal, bq, bk):
     return torch.empty_like(q)
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention)
-def _flash_attention_flops(q_shape, k_shape, v_shape, causal, *,
+def _flash_attention_flops(q_shape, k_shape, v_shape, causal, bq, bk, *,
                            out_shape=None, **kwargs) -> int:
     """``FlopCounterMode``'s count of the plain version (two batched
     products, scores and output, over every (query, key) pair whatever
@@ -109,7 +166,8 @@ def _flash_attention_flops(q_shape, k_shape, v_shape, causal, *,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, bq: Optional[int] = None,
+                    bk: Optional[int] = None) -> torch.Tensor:
     """Online-softmax attention, forward only.  q ``[B,Sq,H,D]``, k/v
     ``[B,Sk,K,D]`` with ``H % K == 0`` (grouped kv heads), one dtype
     (float32 or bfloat16), contiguous, on one device; D in
@@ -118,7 +176,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     On the card, bfloat16 operands with keys must start on 16 bytes (a
     view at an odd offset raises ``ValueError``); float32 takes any
     contiguous one (16-byte copies where all three start on 16 bytes,
-    4-byte ones otherwise).
+    4-byte ones otherwise).  ``bq``/``bk`` force the float32 variant's
+    tile (:data:`TILES`); unset, they come from the tuning registry.
     """
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
@@ -148,4 +207,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             _INT_MAX:
         raise ValueError("flash_attention: batch or head count exceeds the "
                          "kernel's grid")
-    return _flash_attention(q, k, v, bool(causal))
+    dev, which, cfg = resolve_tile(q, bq, bk)
+    if which == "ffma":
+        tuning.note("flash_attention", dev, which, cfg)
+    return _flash_attention(q, k, v, bool(causal), cfg["bq"], cfg["bk"])

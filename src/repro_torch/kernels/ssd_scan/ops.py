@@ -6,9 +6,15 @@ Replaces ``repro.kernels.ssd_scan.ops.ssd`` (the Pallas kernel
 kernel for CUDA tensors or raises, and takes the plain version in
 ``ref.py`` for CPU tensors; there is no other fallback.  :func:`ssd`
 wraps it in torch ops as the reference wrapped it in XLA: the scan over
-chunk states, the ``C·h_in·exp(cs)`` term and the ``D`` skip.  The chunk
-defaults to 128; the reference's ``tuned.json`` (256) was chosen in CPU
-interpret mode and is not taken.
+chunk states, the ``C·h_in·exp(cs)`` term and the ``D`` skip.
+
+The chunk is part of the function (it fixes the states' shape), so an
+explicit ``chunk`` keeps its contract: the plain version takes any, the
+kernel any up to 128.  Left unset, it is resolved on every call through
+:mod:`repro_torch.kernels.tuning` (tune override > env > ``tuned.json``
+> 128) and must be one of :data:`TILES`, the chunks a tune may choose;
+the reference's ``tuned.json`` (256) was chosen in CPU interpret mode
+and is not taken.
 
 On the card the kernel is one register-tiled body for chunks up to 128,
 head sizes up to 64 and state sizes up to 128, built for two largest
@@ -17,11 +23,12 @@ and raises for a shape neither takes.  A block takes one (batch, chunk)
 and :func:`head_group` heads, which share its ``C·Bᵀ``.
 """
 import ctypes
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
-from .. import _build
+from .. import _build, tuning
 from .ref import ssd_chunk_ref
 
 #: Kernel launches made by this process (read by ``chip_smoke.py``),
@@ -33,6 +40,10 @@ launches_by_variant = {"tiled_n64": 0, "tiled_n128": 0}
 MAX_CHUNK = 128
 MAX_HEAD_SIZE = 64
 STATE_SIZES = {"tiled_n64": 64, "tiled_n128": 128}
+#: The chunks a tune may choose, by variant: the kernel takes any chunk
+#: up to ``MAX_CHUNK`` at run time (no instantiation per chunk); these
+#: are the ones held to 3e-5 on the card.
+TILES = {name: {"chunk": (32, 64, 128)} for name in STATE_SIZES}
 #: Most heads a block takes (one cumsum warp each), and the blocks a
 #: streaming multiprocessor should get before heads are grouped.
 MAX_GROUP = 8
@@ -46,10 +57,8 @@ _SIGNATURES = {
     **{sym: [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
        for sym in _SYMBOLS.values()},
     "ssd_chunk_smem_bytes": [ctypes.c_int] * 2,
-    "shared_memory_optin": [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+    "shared_memory_optin": _build.SMEM_OPTIN_SIGNATURE,
 }
-#: Per device index: (streaming multiprocessors, opt-in shared memory).
-_DEVICE = {}
 
 
 def variant(chunk: int, p: int, n: int) -> str:
@@ -69,6 +78,26 @@ def variant(chunk: int, p: int, n: int) -> str:
         f"{max(STATE_SIZES.values())})")
 
 
+def state_variant(n: int) -> str:
+    """The variant whose tuned chunk a call with state size ``n`` reads:
+    the one :func:`variant` picks, ``tiled_n128`` also above 128 (where
+    the kernel refuses the shape and only the plain version runs)."""
+    return "tiled_n64" if n <= STATE_SIZES["tiled_n64"] else "tiled_n128"
+
+
+def resolve_chunk(x: torch.Tensor, n: int
+                  ) -> Tuple[str, str, Dict[str, int]]:
+    """(device key, variant, knobs) of a call on ``x`` with state size
+    ``n`` that names no chunk: the chunk resolved through the tuning
+    registry for :func:`state_variant` and validated against
+    :data:`TILES`."""
+    which = state_variant(n)
+    dev = tuning.device_key(x.device)
+    cfg = tuning.resolve("ssd_scan", which, device=dev)
+    tuning.validate_blocks("ssd_scan", which, cfg, TILES[which])
+    return dev, which, cfg
+
+
 def head_group(b: int, nc: int, h: int, sms: int) -> int:
     """Heads a block takes, G: the largest power of two up to
     ``MAX_GROUP`` and up to ``h`` for which the grid of
@@ -79,18 +108,6 @@ def head_group(b: int, nc: int, h: int, sms: int) -> int:
     while g > 1 and (g > h or b * nc * -(-h // g) < BLOCKS_PER_SM * sms):
         g //= 2
     return g
-
-
-def _device(lib, index: int):
-    got = _DEVICE.get(index)
-    if got is None:
-        limit = ctypes.c_int(0)
-        _build.check(lib, lib.shared_memory_optin(index, ctypes.byref(limit)),
-                     "ssd_chunk")
-        got = _DEVICE[index] = (
-            torch.cuda.get_device_properties(index).multi_processor_count,
-            limit.value)
-    return got
 
 
 def _launch(x, dt, A, B, C, chunk: int):
@@ -109,7 +126,8 @@ def _launch(x, dt, A, B, C, chunk: int):
     lib = _build.load("ssd_scan", _SIGNATURES)
     index = x.device.index if x.device.index is not None \
         else torch.cuda.current_device()
-    sms, limit = _device(lib, index)
+    sms = _build.multiprocessors(index)
+    limit = _build.shared_memory_optin(lib, index)
     G = head_group(b, nc, h, sms)
     need = lib.ssd_chunk_smem_bytes(STATE_SIZES[which], G)
     if need > limit:
@@ -163,10 +181,11 @@ def _ssd_chunk_flops(x_shape, dt_shape, A_shape, B_shape, C_shape, chunk,
     return 2 * b * nc * Q * (Q * n + h * Q * p + h * p * n)
 
 
-def ssd_chunk(x, dt, A, B, C, *, chunk: int = 128):
+def ssd_chunk(x, dt, A, B, C, *, chunk: Optional[int] = None):
     """The SSD chunk kernel: x ``[b,l,h,p]``, dt ``[b,l,h]``, A ``[h]``,
     B/C ``[b,l,n]`` (one group, folded), all float32, contiguous, on one
-    device; ``l`` a multiple of ``Q = min(chunk, l)``.
+    device; ``l`` a multiple of ``Q = min(chunk, l)``, the chunk from the
+    tuning registry (128 by default) when not given.
 
     Returns (y_intra ``[b,l,h,p]``, states ``[b,l/Q,h,p,n]``, exp of the
     cumsum of ``dt·A`` within each chunk ``[b,l,h]``), all float32.
@@ -180,9 +199,14 @@ def ssd_chunk(x, dt, A, B, C, *, chunk: int = 128):
                          f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
                          f"{tuple(B.shape)}, C {tuple(C.shape)}; want "
                          f"[b,l,h,p], [b,l,h], [h], [b,l,n], [b,l,n]")
-    if isinstance(chunk, bool) or not isinstance(chunk, int) or chunk < 1:
+    if chunk is None:
+        dev, which, cfg = resolve_chunk(x, B.shape[-1])
+        chunk = cfg["chunk"]
+    elif isinstance(chunk, bool) or not isinstance(chunk, int) or chunk < 1:
         raise ValueError(f"ssd_chunk: chunk must be a positive int, got "
                          f"{chunk!r}")
+    else:
+        dev, which = tuning.device_key(x.device), state_variant(B.shape[-1])
     Q = min(chunk, l)
     if l == 0 or l % Q:
         raise ValueError(f"ssd_chunk: sequence length {l} is not a "
@@ -198,10 +222,11 @@ def ssd_chunk(x, dt, A, B, C, *, chunk: int = 128):
         raise ValueError("ssd_chunk: operands must be contiguous")
     if b > _MAX_GRID_YZ or h > _MAX_GRID_YZ or x.numel() > _INT_MAX:
         raise ValueError("ssd_chunk: operands exceed the kernel's grid")
+    tuning.note("ssd_scan", dev, which, {"chunk": chunk})
     return _ssd_chunk(x, dt, A, B, C, chunk)
 
 
-def ssd(x, dt, A, B, C, D, *, chunk: int = 128, init_state=None):
+def ssd(x, dt, A, B, C, D, *, chunk: Optional[int] = None, init_state=None):
     """Same contract as ``ssd_chunked`` for one group: x ``[b,l,h,p]``;
     dt ``[b,l,h]``; A ``[h]``; B,C ``[b,l,1,n]``; D ``[h]``; float32.
     Returns (y ``[b,l,h,p]``, final_state ``[b,h,p,n]``)."""

@@ -18,8 +18,9 @@ all float32 (jax runs with x64 off):
 
 Every fixture returns ``(fn, *operands)`` on the run's ``--device``; the
 bodies deliver the result, so the wall meter synchronizes the card
-before the clock stops.  The reference declares ``matmul_rect`` tunable;
-the port has no tuner yet, so it declares nothing.
+before the clock stops.  ``matmul_rect`` declares the matmul kernel's
+tile space tunable, as the reference does, over the ``simt`` variant's
+instantiated tiles (``python -m repro_torch tune linalg/matmul_rect``).
 """
 import torch
 
@@ -84,6 +85,9 @@ def _register(registry: BenchmarkRegistry) -> None:
         ParamSpace.product(m=[512], n=[256], k=[256])
         .where(lambda p: on_card))
     matmul_rect.set_fixture(matmul_rect_setup)
+    # the float32 product runs matmul's simt variant: its instantiated
+    # tiles (the reference searched Pallas blocks up to 512)
+    matmul_rect.set_tunable("matmul", bm=[64, 128], bn=[64, 128], bk=[16])
 
     def cholesky_setup(params):
         a = torch.eye(params.n, device=_device()) * 4.0 + 0.1

@@ -12,7 +12,8 @@ never holds a ``backend:cuda`` record that ran no CUDA kernel.  The
 fixture allocates the operands (``ones``, as the reference) and turns
 TF32 off, so float32 products are full float32 — the context block
 records the switch.  Reports achieved FLOP/s and the modeled roofline
-time at the card's bf16 peak.
+time at the card's bf16 peak.  ``python -m repro_torch tune mxu/matmul``
+searches the ``wgmma`` variant's tiles on the bf16 ``cuda`` instance.
 """
 import torch
 
@@ -62,6 +63,11 @@ def _register(registry: BenchmarkRegistry) -> None:
                            n=[256, 512, 1024])
         .where(lambda p: on_card or p.backend != "cuda"))
     matmul.set_fixture(setup)
+    # `python -m repro_torch tune mxu/matmul` searches the wgmma variant's
+    # instantiated tiles on the bf16 kernel instance (the reference
+    # searched Pallas blocks up to 256 on its pallas instance)
+    matmul.set_tunable("matmul", bm=[64, 128], bn=[64, 128], bk=[64],
+                       instance={"backend": "cuda", "dtype": "bf16"})
 
 
 SCOPE = Scope(name=NAME, version="2.0.0",

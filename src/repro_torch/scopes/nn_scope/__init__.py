@@ -16,8 +16,11 @@ and families are left out, as in the mxu scope.
 Every family builds operands and its callable in a fixture (untimed; the
 runner's warm phase reports the first call as ``compile_time_s``) and
 declares its output with ``state.deliver``.  Counters and bytes/items
-processed keep the reference's formulas.  The port has no kernel tuning
-yet, so the families declare no tunable knobs.
+processed keep the reference's formulas.  ``rmsnorm``,
+``flash_attention_cuda`` and ``ssd_scan_cuda`` declare their kernels'
+knobs tunable, as the reference's ``rmsnorm``, ``flash_attention_pallas``
+and ``ssd_scan_pallas`` do, over the tiles the CUDA kernels are built
+for (``python -m repro_torch tune --list``).
 """
 import torch
 
@@ -123,6 +126,10 @@ def _register(registry: BenchmarkRegistry) -> None:
                            d=[1024, 4096])
         .where(lambda p: on_card or p.backend != "cuda"))
     rmsnorm.set_fixture(rmsnorm_setup)
+    # the kernel's instantiated rows a block (the reference searched
+    # Pallas row blocks of 64..1024 on its pallas instance)
+    rmsnorm.set_tunable("rmsnorm", br=[1, 2, 4, 8],
+                        instance={"backend": "cuda"})
 
     if on_card:
         def flash_cuda_setup(params):
@@ -140,22 +147,31 @@ def _register(registry: BenchmarkRegistry) -> None:
             state.counters["attn_flops"] = _attn_flops(q)
         flash_attention_cuda.param_space(seq=[256, 512, 1024])
         flash_attention_cuda.set_fixture(flash_cuda_setup)
+        # the ffma variant's instantiated tiles (float32 operands)
+        flash_attention_cuda.set_tunable("flash_attention", bq=[64, 128],
+                                         bk=[32, 64])
 
         def ssd_cuda_setup(params):
             def fn(*operands):
-                return ssd(*operands, chunk=128)[0]
+                # the chunk comes from the tuned defaults
+                # (repro_torch.kernels.tuning), as in the reference
+                return ssd(*operands)[0]
             return (fn,) + _ssd_operands(params.seq)
 
         @benchmark(scope=NAME, registry=registry)
         def ssd_scan_cuda(state: State):
             """Mamba2 SSD scan through the hand-written CUDA chunk kernel
-            (chunk 128), at the shapes of ssd_chunked_scan."""
+            (tuned chunk, 128 by default), at the shapes of
+            ssd_chunked_scan."""
             fn, *operands = state.fixture
             while state.keep_running():
                 state.deliver(fn(*operands))
             state.set_items_processed(2 * state.params.seq)
         ssd_scan_cuda.param_space(seq=[1024, 4096])
         ssd_scan_cuda.set_fixture(ssd_cuda_setup)
+        # the chunks the kernel stages (the reference's 256 and 512
+        # exceed its 128)
+        ssd_scan_cuda.set_tunable("ssd_scan", chunk=[32, 64, 128])
 
     def moe_setup(params):
         E, k, d, ff = 8, 2, 256, 512

@@ -471,3 +471,218 @@ def test_linalg_pool_run_on_the_card(cuda, tmp_path):
     assert not [rec for rec in doc["benchmarks"]
                 if rec.get("error_occurred")]
     assert doc["context"]["backend"] == "cuda"
+
+
+# -- every instantiated tile of every tuned variant ---------------------------
+
+def _tiles(table):
+    """Every tile of a variant's instantiated set, as knob dicts."""
+    import itertools
+    knobs = sorted(table)
+    return [dict(zip(knobs, values))
+            for values in itertools.product(*(table[k] for k in knobs))]
+
+
+def _tile_id(tile):
+    return "-".join(f"{k}{v}" for k, v in sorted(tile.items()))
+
+
+@pytest.mark.parametrize("tile", _tiles(matmul_ops.TILES["wgmma"]),
+                         ids=_tile_id)
+@pytest.mark.parametrize("m,k,n", [(256, 4096, 256), (200, 72, 136),
+                                   (1000, 1536, 776)])
+def test_matmul_wgmma_every_tile(cuda, tile, m, k, n):
+    """Each wgmma tile (one or two consumer warpgroups, one or two y
+    boxes a stage) holds 2e-1 and 2 bf16 ulps; K = 4096 checks that the
+    per-stage float32 fold holds for every tile."""
+    x, y = _matmul_operands(m, k, n, torch.bfloat16, cuda)
+    before = matmul_ops.launches_by_variant["wgmma"]
+    out = matmul(x, y, **tile)
+    torch.cuda.synchronize()
+    assert matmul_ops.launches_by_variant["wgmma"] == before + 1
+    torch.testing.assert_close(out.float(), matmul_ref(x, y).float(),
+                               atol=2e-1, rtol=2e-1)
+    assert bf16_ulp_error(out, x, y) <= 2.0
+
+
+@pytest.mark.parametrize("tile", _tiles(matmul_ops.TILES["simt"]),
+                         ids=_tile_id)
+@pytest.mark.parametrize("m,k,n,dtype,offset", [
+    (130, 70, 90, torch.float32, 0), (1000, 777, 1536, torch.float32, 0),
+    (512, 256, 256, torch.float32, 0), (65, 17, 129, torch.bfloat16, 0),
+    (200, 72, 136, torch.bfloat16, 1)])
+def test_matmul_simt_every_tile(cuda, tile, m, k, n, dtype, offset):
+    """Each simt tile on ragged M and N (float32 to 1e-4, bf16 through
+    odd widths or a misaligned base to 2e-1 and 2 ulps)."""
+    x, y = _matmul_operands(m, k, n, dtype, cuda, offset)
+    assert matmul_ops.variant(m, k, n, dtype, x.data_ptr(),
+                              y.data_ptr()) == "simt"
+    before = matmul_ops.launches_by_variant["simt"]
+    out = matmul(x, y, **tile)
+    torch.cuda.synchronize()
+    assert matmul_ops.launches_by_variant["simt"] == before + 1
+    tol = 1e-4 if dtype == torch.float32 else 2e-1
+    torch.testing.assert_close(out.float(), matmul_ref(x, y).float(),
+                               atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        assert bf16_ulp_error(out, x, y) <= 2.0
+
+
+@pytest.mark.parametrize("tile", _tiles(flash_ops.TILES["ffma"]),
+                         ids=_tile_id)
+@pytest.mark.parametrize("B,Sq,Sk,H,K,D,causal", [
+    (2, 130, 300, 8, 4, 16, False), (1, 333, 129, 8, 2, 32, True),
+    (2, 1024, 1024, 4, 2, 64, True), (1, 129, 333, 4, 1, 128, True),
+    (2, 1000, 1000, 4, 2, 64, False)])
+def test_flash_attention_ffma_every_tile(cuda, tile, B, Sq, Sk, H, K, D,
+                                         causal):
+    """Each ffma tile at every head size, ragged and at the nn scope's
+    largest shape, to 2e-5, also with inputs x4 (scores of tens)."""
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, np.float32)).to(cuda)
+               for s in ((B, Sq, H, D), (B, Sk, K, D), (B, Sk, K, D)))
+    for scale in (1.0, 4.0):
+        qs, ks, vs = q * scale, k * scale, v * scale
+        before = flash_ops.launches_by_variant["ffma"]
+        out = flash_attention(qs, ks, vs, causal=causal, **tile)
+        torch.cuda.synchronize()
+        assert flash_ops.launches_by_variant["ffma"] == before + 1
+        torch.testing.assert_close(
+            out, flash_attention_ref(qs, ks, vs, causal=causal),
+            atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("br", rmsnorm_ops.TILES[rmsnorm_ops.VARIANT]["br"])
+@pytest.mark.parametrize("rows,d", [(7, 1000), (4096, 1024), (13, 8192),
+                                    (1, 64)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_rmsnorm_every_rows_a_block(cuda, br, rows, d, dtype, tol):
+    """Each rows-a-block count, with row counts it does not divide."""
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((rows, d), np.float32))
+    s = torch.from_numpy(rng.standard_normal(d, np.float32) + 1.0)
+    x, s = x.to(cuda, dtype), s.to(cuda)
+    before = rmsnorm_ops.launches
+    out = rmsnorm(x, s, br=br)
+    torch.cuda.synchronize()
+    assert rmsnorm_ops.launches == before + 1
+    torch.testing.assert_close(out.float(), rmsnorm_ref(x, s).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("chunk", ssd_ops.TILES["tiled_n64"]["chunk"])
+@pytest.mark.parametrize("b,l,h,p,n", [
+    (2, 1024, 4, 64, 64), (2, 4096, 4, 64, 64),   # the nn scope's rows
+    (1, 4096, 48, 64, 128)])                      # mamba2-780m's SSD layer
+def test_ssd_every_tuned_chunk(cuda, chunk, b, l, h, p, n, monkeypatch):
+    """Each chunk a tune may choose, taken through the tuning registry
+    (the env knob), holds the plain version and the sequential
+    recurrence to 3e-5."""
+    from repro_torch.kernels import tuning
+    assert chunk in ssd_ops.TILES[ssd_ops.state_variant(n)]["chunk"]
+    monkeypatch.setenv("REPRO_TUNED_SSD_SCAN_CHUNK", str(chunk))
+    tuning.invalidate_cache()
+    try:
+        x, dt, A, Bm, Cm, D = _ssd_operands(b, l, h, p, n, cuda)
+        _ssd_chunk_holds(x, dt, A, Bm, Cm, chunk)
+        got = ssd_chunk(x, dt, A, Bm[:, :, 0], Cm[:, :, 0])   # resolved
+        assert got[1].shape[1] == l // chunk
+        y, s = ssd(x, dt, A, Bm, Cm, D)
+        yr, sr = ssd_reference(x, dt, A, Bm, Cm, D)
+        torch.testing.assert_close(y, yr, atol=3e-5, rtol=3e-5)
+        torch.testing.assert_close(s, sr, atol=3e-5, rtol=3e-5)
+    finally:
+        monkeypatch.delenv("REPRO_TUNED_SSD_SCAN_CHUNK")
+        tuning.invalidate_cache()
+
+
+def test_c_entries_refuse_tiles_outside_their_set(cuda):
+    """A tile the source has no instantiation for is refused by the C
+    entry (cudaErrorInvalidValue, nothing launched) and, before that,
+    by the wrapper, on the card as on the CPU."""
+    import ctypes
+    from repro_torch.kernels import _build
+    invalid = 1   # cudaErrorInvalidValue
+    stream = torch.cuda.current_stream().cuda_stream
+    x = torch.ones((64, 64), device=cuda)
+    out = torch.empty_like(x)
+    mlib = _build.load("matmul", matmul_ops._SIGNATURES)
+    for sym, tile in (("matmul_f32", (96, 64, 16)),
+                      ("matmul_f32", (128, 128, 64)),
+                      ("matmul_bf16_wgmma", (128, 128, 16)),
+                      ("matmul_bf16_wgmma", (256, 128, 64))):
+        xb = x if sym == "matmul_f32" else x.bfloat16()
+        ob = out if sym == "matmul_f32" else out.bfloat16()
+        assert getattr(mlib, sym)(xb.data_ptr(), xb.data_ptr(),
+                                  ob.data_ptr(), 64, 64, 64, *tile,
+                                  stream) == invalid, (sym, tile)
+    assert mlib.matmul_smem_bytes(1, 96, 128, 64) == -1
+    q = torch.ones((1, 64, 2, 64), device=cuda)
+    part = torch.empty(flash_ops.FFMA_SPLITS * 64 * 2 * 66, device=cuda)
+    flib = _build.load("flash_attention", flash_ops._SIGNATURES)
+    assert flib.flash_attention_f32_ffma(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(),
+        part.data_ptr(), 1, 64, 64, 2, 2, 64, 1, 0.125, 32, 64,
+        stream) == invalid
+    rlib = _build.load("rmsnorm", rmsnorm_ops._SIGNATURES)
+    assert rlib.rmsnorm_f32(x.data_ptr(), x.data_ptr(), out.data_ptr(), 64,
+                            64, ctypes.c_float(1e-6), 3, stream) == invalid
+    torch.cuda.synchronize()
+    before = (matmul_ops.launches, flash_ops.launches, rmsnorm_ops.launches)
+    with pytest.raises(ValueError, match="bm=96"):
+        matmul(x, x, bm=96)
+    with pytest.raises(ValueError, match="bq=32"):
+        flash_attention(q, q, q, bq=32)
+    with pytest.raises(ValueError, match="br=3"):
+        rmsnorm(x, torch.ones(64, device=cuda), br=3)
+    assert before == (matmul_ops.launches, flash_ops.launches,
+                      rmsnorm_ops.launches)
+
+
+def _tree_state(root):
+    """Every file under ``src/`` with its size and mtime, and the git
+    status of ``src/`` where the checkout has git."""
+    import os
+    import subprocess
+    files = sorted((os.path.join(d, f), os.path.getsize(os.path.join(d, f)),
+                    os.path.getmtime(os.path.join(d, f)))
+                   for d, _, fs in os.walk(os.path.join(root, "src"))
+                   if "__pycache__" not in d for f in fs)
+    status = None
+    if os.path.isdir(os.path.join(root, ".git")):
+        status = subprocess.run(["git", "status", "--porcelain", "--", "src"],
+                                capture_output=True, text=True,
+                                cwd=root).stdout
+    return files, status
+
+
+def test_tune_on_the_card_leaves_the_tree_clean(cuda, tmp_path):
+    """``python -m repro_torch tune nn/rmsnorm`` on the card with its
+    artifact directory and results outside the checkout: the artifact
+    holds the card's name and the variant, and the source tree is as it
+    was (``git status --porcelain`` prints nothing new)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    before = _tree_state(root)
+    env = dict(os.environ, REPRO_TUNED_DIR=str(tmp_path / "tuned"),
+               PYTHONPATH=os.pathsep.join(
+                   filter(None, [os.path.join(root, "src"),
+                                 os.environ.get("PYTHONPATH")])))
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch", "tune", "nn/rmsnorm",
+         "--budget", "2", "--benchmark_min_time", "0.01", "--no-report",
+         "--results-dir", str(tmp_path / "results"), "--run-id", "card"],
+        capture_output=True, text=True, env=env, cwd=root, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    artifact = json.loads((tmp_path / "tuned" / "rmsnorm" /
+                           "tuned.json").read_text())
+    entry = artifact["devices"][torch.cuda.get_device_name(0)]["rows"]
+    assert entry["config"]["br"] in rmsnorm_ops.TILES["rows"]["br"]
+    summary = json.loads((tmp_path / "results" / "card" /
+                          "tune.json").read_text())
+    assert summary["baseline"]["params"] == {"br": 1}
+    assert _tree_state(root) == before

@@ -221,7 +221,7 @@ def test_bridge_carries_numpy_and_bfloat16():
 
 @pytest.mark.parametrize("argv", [
     ["run", "--since", "2026-08-01"], ["run", "--strict"], ["--since"],
-    ["ci"], ["run", "--lint"], ["lint"], ["tune", "mxu/matmul"],
+    ["ci"], ["run", "--lint"], ["lint"],
     ["plan", "--since"], ["report", "x"], ["store", "index"],
 ])
 def test_unported_surface_is_refused(argv):

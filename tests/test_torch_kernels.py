@@ -129,9 +129,11 @@ def test_histogram_wrapper_rejects(x, bins, err, match):
 
 def test_wrappers_are_custom_ops():
     """Both go through the dispatcher as repro_torch:: ops with a fake
-    (shape) implementation, so a FLOP counter can see them."""
+    (shape) implementation, so a FLOP counter can see them; matmul's op
+    takes the resolved tile (bm, bn, bk) as ints."""
     x, y = torch.ones(8, 4), torch.ones(4, 6)
-    torch.library.opcheck(torch.ops.repro_torch.matmul.default, (x, y),
+    torch.library.opcheck(torch.ops.repro_torch.matmul.default,
+                          (x, y, 128, 64, 16),
                           test_utils=("test_schema", "test_faketensor"))
     h = torch.arange(10, dtype=torch.int32)
     torch.library.opcheck(torch.ops.repro_torch.histogram.default, (h, 7),

@@ -207,14 +207,15 @@ def test_ssd_wrappers_reject():
 
 def test_nn_wrappers_are_custom_ops():
     """All three go through the dispatcher as repro_torch:: ops with a
-    fake (shape) implementation."""
+    fake (shape) implementation; flash attention's and rmsnorm's ops
+    take the resolved tile (bq, bk; br) as ints."""
     util = ("test_schema", "test_faketensor")
     q, kv = torch.randn(1, 8, 4, 16), torch.randn(1, 8, 2, 16)
     torch.library.opcheck(torch.ops.repro_torch.flash_attention.default,
-                          (q, kv, kv, True), test_utils=util)
+                          (q, kv, kv, True, 64, 64), test_utils=util)
     x, s = torch.randn(4, 32), torch.randn(32)
     torch.library.opcheck(torch.ops.repro_torch.rmsnorm.default,
-                          (x, s, 1e-6), test_utils=util)
+                          (x, s, 1e-6, 1), test_utils=util)
     xs, dt, A, Bm, Cm, _ = map(_t, _ssd_inputs(32, 2, b=1))
     torch.library.opcheck(torch.ops.repro_torch.ssd_chunk.default,
                           (xs, dt, A, Bm[:, :, 0], Cm[:, :, 0], 16),
