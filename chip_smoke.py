@@ -61,18 +61,23 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      ``tuning_resolve``) timed alone over ``HOST_CALLS`` calls on the
      host clock;
   9. the main path: ``repro_torch.core.main.main(["run", ...])`` over
-     the example, mxu, histo, nn and linalg scopes (one process, nothing
-     persisted: ``--results-dir ''``), with the kernels' launch counts
-     set to 0 just before and read just after.  Every scope must load
-     and be enabled, every instance must have a record without error
-     and with ``compile_time_s``, all five kernels must have launched,
+     all eight scopes of the port (example, mxu, comm, nn, instr, histo,
+     linalg, io; one process, nothing persisted: ``--results-dir ''``),
+     with the kernels' launch counts set to 0 just before and read just
+     after.  Every scope must load and be enabled, every instance must
+     have a record without error and with ``compile_time_s``, all five
+     kernels must have launched,
      the mxu scope's bf16 ``cuda`` rows must have gone through matmul's
      ``wgmma`` variant, the nn scope's float32 flash rows through flash
      attention's ``ffma`` variant and its ``ssd_scan_cuda`` rows
      through the SSD kernel's ``tiled_n64``, and the linalg scope (whose
      only kernel row is ``matmul_rect``) must have raised matmul's
      ``simt`` count while it ran (read at the orchestrator's per-scope
-     log line);
+     log line); ``comm/all_reduce_measured`` must report ``devices`` 1
+     on an NCCL process group (the backend is logged), the 24
+     ``collective_modeled_v5e`` rows must equal the reference's analytic
+     model, computed here from its formula, and the instr scope's
+     ``gelu`` op is held once to the tanh formula on the card;
  10. the same main path again in a child process under
      ``torch.profiler``: the device's idle share over its activity
      window;
@@ -100,7 +105,19 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      One line a family: the instance, the builtin tile and its
      ``real_time``, the winner and its ``real_time``, the speedup and the
      trials used; then one ``{"tune": [...]}`` line;
- 13. a ``{"host_path_us": ..., "main_path_idle": ...}`` line, then one
+ 13. the incremental loop, through ``python -m repro_torch`` in child
+     processes over the example and mxu scopes, with ``REPRO_TUNED_DIR``
+     under ``build/``: a run writes history records that each carry a
+     ``fingerprint`` and a context with ``fingerprints``; a ``--since``
+     run plans 0 instances and its merged document replays every record
+     as ``cached``; after a ``matmul`` artifact for this card is written
+     through the tuning API, a ``--since`` run re-measures exactly the
+     instances of the families tunable on matmul; ``ci --no-report``
+     exits 0; ``store index`` builds ``history.db``; ``query --scope
+     mxu`` lists the mxu records; ``store status --coverage`` counts
+     every instance of the two scopes fresh.  One ``{"incremental":
+     ...}`` line holds the counts, the exit codes and the run walls;
+ 14. a ``{"host_path_us": ..., "main_path_idle": ...}`` line, then one
      ``{"kernels": [...]}`` line: per kernel its launches on the main
      path (with each variant's, for matmul, flash attention and SSD), its
      largest error against the plain version, and its time,
@@ -109,7 +126,7 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      instantiated tile under ``tiles``).
      ``ms`` is the time per call of back-to-back calls through the
      wrapper (CUDA events), ``device_ms`` the kernels alone (profiler);
- 14. last line: ``{"ok": true, "device": {...}}``.
+ 15. last line: ``{"ok": true, "device": {...}}``.
 
 Every comparison holds the kernel to its plain version on the same
 inputs with ``atol = rtol = tol``, ``tol`` being the reference's own
@@ -875,7 +892,8 @@ def expected_instances() -> list:
     return [name for b in mgr.registry.all() for name, _ in b.instances()]
 
 
-MAIN_SCOPES = ["example", "mxu", "histo", "nn", "linalg"]
+MAIN_SCOPES = ["example", "mxu", "comm", "nn", "instr", "histo", "linalg",
+               "io"]
 
 
 def main_argv(out: str) -> list:
@@ -890,16 +908,19 @@ class ScopeLaunches(logging.Handler):
     """Matmul's ``simt`` launch count at each of the orchestrator's
     per-scope lines ("scope <name>: ..."), which it logs as each scope
     of an inline run ends: the difference from the line before is the
-    count that scope launched."""
+    count that scope launched.  The line's seconds are the scope's
+    wall (``walls``)."""
 
     def __init__(self):
         super().__init__()
         self.marks = []
+        self.walls = {}
 
     def emit(self, record):
         if record.msg.startswith("scope %s:"):
             self.marks.append((record.args[0],
                                matmul_ops.launches_by_variant["simt"]))
+            self.walls[record.args[0]] = record.args[-1]
 
     def launched(self, scope: str) -> int:
         prev = 0
@@ -909,6 +930,73 @@ class ScopeLaunches(logging.Handler):
             prev = count
         raise AssertionError(f"no per-scope log line for {scope}: "
                              f"{self.marks}")
+
+
+#: The reference's analytic collective model (its comm scope): the link
+#: bandwidth it takes for one ICI link of its TPU v5e mesh, in B/s.  The
+#: port's ``collective_modeled_v5e`` rows must reproduce the model
+#: exactly; the number says nothing about this machine.
+V5E_ICI_LINK_BANDWIDTH = 50e9
+
+
+def modeled_collective_seconds(kind: str, nbytes: int, n: int) -> float:
+    """The reference's ring-collective time on one ICI axis of n chips."""
+    if n <= 1:
+        return 0.0
+    factor = {"all_reduce": 2.0 * (n - 1) / n,
+              "all_gather": (n - 1) / n,
+              "reduce_scatter": (n - 1) / n,
+              "all_to_all": (n - 1) / (n * n),
+              "ppermute": 1.0}[kind]
+    return factor * nbytes / (2 * V5E_ICI_LINK_BANDWIDTH)
+
+
+def check_model_free(records: dict) -> dict:
+    """The main path's comm and instr rows: the measured all-reduce on a
+    one-rank NCCL group, the modeled rows against the reference's model,
+    and the ``gelu`` op against the tanh formula on the card."""
+    import torch.distributed as dist
+    from repro_torch.scopes.instr_scope import _OPS
+    backend = dist.get_backend() if dist.is_initialized() else None
+    world = dist.get_world_size() if dist.is_initialized() else None
+    log(f"comm: process group backend {backend}, world size {world}")
+    measured = {n: r.get("devices") for n, r in records.items()
+                if n.startswith("comm/all_reduce_measured/")}
+    if backend != "nccl" or len(measured) != 3 or \
+            set(measured.values()) != {1}:
+        raise AssertionError(f"all_reduce_measured on {backend}: devices "
+                             f"{measured}")
+    modeled, wrong = 0, {}
+    for name, r in records.items():
+        if not name.startswith("comm/collective_modeled_v5e/"):
+            continue
+        modeled += 1
+        axes = dict(part.split(":", 1) for part in name.split("/")[2:])
+        want = modeled_collective_seconds(axes["kind"], int(axes["bytes"]),
+                                          int(axes["axis"]))
+        if r.get("modeled_s") != want or \
+                r.get("axis_size") != int(axes["axis"]):
+            wrong[name] = (r.get("modeled_s"), want, r.get("axis_size"))
+    if modeled != 24 or wrong:
+        raise AssertionError(f"{modeled} modeled rows; off the model: "
+                             f"{wrong}")
+    x = torch.linspace(0.1, 1.0, 1 << 20, device="cuda")
+    got = _OPS["gelu"](x).double()
+    xd = x.double()
+    want = 0.5 * xd * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi)
+                                        * (xd + 0.044715 * xd ** 3)))
+    gelu_err = (got - want).abs().max().item()
+    exact_gap = (F.gelu(xd) - got).abs().max().item()
+    if not gelu_err <= 1e-6 or not exact_gap > 1e-5:
+        raise AssertionError(f"instr gelu: {gelu_err:.3e} from the tanh "
+                             f"formula, {exact_gap:.3e} from exact GELU")
+    log(f"comm/instr: all_reduce_measured devices 1 on {backend}; "
+        f"{modeled} modeled rows equal the reference's model; instr gelu "
+        f"{gelu_err:.3e} from the tanh formula (exact GELU "
+        f"{exact_gap:.3e} away)")
+    return {"comm_backend": backend, "comm_world_size": world,
+            "modeled_rows": modeled, "gelu_max_abs_err": gelu_err,
+            "gelu_exact_gap": exact_gap}
 
 
 def phase_main_path() -> dict:
@@ -994,17 +1082,22 @@ def phase_main_path() -> dict:
         raise AssertionError(f"linalg/matmul_rect: record {rect}, simt "
                              f"launches while linalg ran {rect_launches}")
     by_variant["matmul"]["simt_linalg"] = rect_launches
+    model_free = check_model_free(records)
+    model_free["scope_walls_s"] = dict(per_scope.walls)
     log(f"main path: {len(records)} records from {', '.join(scopes)} in "
         f"{wall:.1f} s on {ctx['device_kind']}; launches {launches}; by "
         f"variant {by_variant} (simt_linalg: the linalg scope's, all "
         f"matmul_rect); last tile each: "
         + "; ".join(f"{k} {v} {tile_str(c)}"
                     for k, (_, v, c) in sorted(tuning.last_resolved.items())))
+    log("main path scope walls (s): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in per_scope.walls.items()))
     for name, r in records.items():
-        if name.startswith(("mxu/", "histo/", "nn/", "linalg/")):
+        if name.startswith(("mxu/", "histo/", "nn/", "linalg/", "instr/",
+                            "comm/all_reduce", "io/")):
             log(f"  {name}: {r['real_time']:.3f} {r['time_unit']} "
                 f"(compile {r['compile_time_s']:.3f} s)")
-    return launches, by_variant
+    return launches, by_variant, model_free
 
 
 #: Run in a child process (the scopes register once a process): the
@@ -1229,6 +1322,138 @@ def phase_pipeline() -> dict:
     return facts
 
 
+#: The incremental loop's scopes: one with no kernel, and one whose
+#: family is tunable on matmul; its runs and artifacts under build/.
+INCREMENTAL_SCOPES = ["example", "mxu"]
+INCREMENTAL_DIR = os.path.join(ROOT, "build", "incremental")
+
+
+def phase_incremental() -> dict:
+    """Fingerprints, ``--since`` delta runs, ``ci``, ``store`` and
+    ``query`` through the CLI on the card, with a tuned artifact written
+    for this card between two delta runs."""
+    from repro_torch.core.flags import FlagRegistry
+    from repro_torch.core.hooks import HookChain
+    from repro_torch.core.registry import BenchmarkRegistry
+    from repro_torch.core.scope import ScopeManager
+    card = torch.cuda.get_device_name(0)
+    shutil.rmtree(INCREMENTAL_DIR, ignore_errors=True)
+    tuned_dir = os.path.join(INCREMENTAL_DIR, "tuned")
+    results = os.path.join(INCREMENTAL_DIR, "results")
+    env = {tuning.DIR_ENV: tuned_dir}
+    scopes = [a for s in INCREMENTAL_SCOPES for a in ("--enable-scope", s)]
+    common = [*scopes, "--results-dir", results, "--benchmark_min_time",
+              PIPELINE_MIN_TIME]
+    mgr = ScopeManager(registry=BenchmarkRegistry(), flags=FlagRegistry(),
+                       hooks=HookChain())
+    mgr.load([f"repro_torch.scopes.{s}_scope" for s in INCREMENTAL_SCOPES])
+    mgr.register_all()
+    benches = mgr.registry.all()
+    names = sorted(n for b in benches for n, _ in b.instances())
+    tunable = sorted(n for b in benches
+                     if b.tunable is not None and b.tunable.kernel == "matmul"
+                     for n, _ in b.instances())
+
+    def run(run_id, *extra):
+        r = repro_torch("run", *common, "--run-id", run_id, *extra,
+                        "--benchmark_out", os.devnull, env_extra=env)
+        if r.returncode != 0:
+            raise AssertionError(f"run {run_id} exited {r.returncode}:\n"
+                                 f"{r.stderr[-3000:]}")
+        with open(os.path.join(results, run_id, "merged.json")) as f:
+            doc = json.load(f)
+        live = sorted(b["name"] for b in doc["benchmarks"]
+                      if not b.get("cached"))
+        cached = sorted(b["name"] for b in doc["benchmarks"]
+                        if b.get("cached"))
+        errors = [b["name"] for b in doc["benchmarks"]
+                  if b.get("error_occurred")]
+        if errors:
+            raise AssertionError(f"run {run_id}: records with errors "
+                                 f"{errors}")
+        return r, doc, live, cached
+
+    def history():
+        with open(os.path.join(results, "history.jsonl")) as f:
+            return [json.loads(line) for line in f if line.strip()]
+
+    # 1. a measured run stamps fingerprints on its context and records
+    first, doc, live, cached = run("a")
+    fingerprints = doc["context"].get("fingerprints", {})
+    if live != names or cached or sorted(fingerprints) != names:
+        raise AssertionError(f"run a: measured {live}, cached {cached}, "
+                             f"fingerprints for {sorted(fingerprints)}")
+    recs = [r for r in history() if r["run_id"] == "a"]
+    if len(recs) != len(names) or any(
+            r.get("fingerprint") != fingerprints[r["name"]] for r in recs):
+        raise AssertionError(f"history of run a: {recs}")
+    # 2. nothing changed: --since plans 0 instances, replays every record
+    since, doc, live, cached = run("b", "--since")
+    if live or cached != names:
+        raise AssertionError(f"--since measured {live}, cached {cached}")
+    # 3. a tuned matmul artifact for this card: exactly the instances of
+    #    the families tunable on matmul re-measure
+    tuning.write_tuned("matmul", {"config": {"bm": 64, "bn": 128, "bk": 64},
+                                  "source": {"run_id": "chip_smoke"}},
+                       device=card, variant="wgmma",
+                       path=os.path.join(tuned_dir, "matmul", "tuned.json"))
+    retuned, doc, live, cached = run("c", "--since")
+    if live != tunable or cached != sorted(set(names) - set(tunable)):
+        raise AssertionError(f"after the artifact --since measured {live} "
+                             f"(expected {tunable}), cached {cached}")
+    # 4. ci over the same scopes: nothing stale, gate clean
+    ci = repro_torch("ci", *common, "--run-id", "d", "--no-report",
+                     env_extra=env)
+    if ci.returncode != 0 or \
+            f"0 measured, {len(names)} cached" not in ci.stdout:
+        raise AssertionError(f"ci exited {ci.returncode}: {ci.stdout} "
+                             f"{ci.stderr[-3000:]}")
+    # 5. the store index, 6. a query through it, 7. coverage
+    index = checked_run("store", "index", "--results-dir", results)
+    if not os.path.exists(os.path.join(results, "history.db")):
+        raise AssertionError(f"store index wrote no history.db: "
+                             f"{index.stdout}")
+    query = checked_run("query", "--results-dir", results, "--scope", "mxu",
+                        "--format", "jsonl")
+    rows = [json.loads(line) for line in query.stdout.splitlines()
+            if line.strip()]
+    mxu_recs = [r for r in history() if r["name"].startswith("mxu/")]
+    if not rows or rows != mxu_recs:
+        raise AssertionError(f"query --scope mxu: {len(rows)} rows, "
+                             f"history has {len(mxu_recs)}")
+    status = repro_torch("store", "status", "--results-dir", results,
+                         "--coverage", "--format", "json", env_extra=env)
+    if status.returncode != 0:
+        raise AssertionError(f"store status exited {status.returncode}: "
+                             f"{status.stderr[-3000:]}")
+    coverage = json.loads(status.stdout)["coverage"]
+    counts = {s: coverage["scopes"].get(s) for s in INCREMENTAL_SCOPES}
+    want = {s: {"fresh": sum(n.startswith(s + "/") for n in names),
+                "stale": 0, "never": 0} for s in INCREMENTAL_SCOPES}
+    if counts != want:
+        raise AssertionError(f"coverage {counts}, expected {want}")
+    facts = {
+        "scopes": INCREMENTAL_SCOPES, "instances": len(names),
+        "fingerprinted_records": len(recs),
+        "since_planned": 0, "since_cached": len(names),
+        "artifact": {"kernel": "matmul", "device": card,
+                     "variant": "wgmma"},
+        "retuned_measured": len(tunable),
+        "retuned_cached": len(names) - len(tunable),
+        "ci_rc": ci.returncode, "store_index_rc": index.returncode,
+        "query_rows": len(rows), "coverage": counts,
+        "first_run_wall_s": first.wall_s, "since_run_wall_s": since.wall_s,
+        "retuned_run_wall_s": retuned.wall_s, "ci_wall_s": ci.wall_s,
+    }
+    log(f"incremental: {len(names)} instances of "
+        f"{', '.join(INCREMENTAL_SCOPES)}; first run {first.wall_s:.1f} s, "
+        f"--since (0 planned) {since.wall_s:.1f} s, after a {card} matmul "
+        f"artifact {len(tunable)} re-measured in {retuned.wall_s:.1f} s; "
+        f"ci exit {ci.returncode} in {ci.wall_s:.1f} s; query {len(rows)} "
+        f"mxu rows; coverage {counts}")
+    return facts
+
+
 #: The tune phase: each tunable family of the main path's scopes, with
 #: the arguments that narrow its instance, searched through the CLI.
 TUNE_FAMILIES = [("mxu/matmul", ["--param", "n=1024"]),
@@ -1412,9 +1637,10 @@ def main() -> int:
     kernels = [phase_matmul(hw), phase_histogram(hw), phase_flash(hw),
                phase_rmsnorm(hw), phase_ssd(hw)]
     host = phase_host_path()
-    launches, by_variant = phase_main_path()
+    launches, by_variant, model_free = phase_main_path()
     idle = phase_idle_share()
     pipeline = phase_pipeline()
+    incremental = phase_incremental()
     tune = phase_tune()
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -1422,9 +1648,10 @@ def main() -> int:
         if k["name"] in by_variant:
             k["launches_by_variant"] = by_variant[k["name"]]
     print(json.dumps({"pipeline": pipeline}), flush=True)
+    print(json.dumps({"incremental": incremental}), flush=True)
     print(json.dumps({"tune": tune}), flush=True)
-    print(json.dumps({"host_path_us": host, "main_path_idle": idle}),
-          flush=True)
+    print(json.dumps({"host_path_us": host, "main_path_idle": idle,
+                      "main_path_model_free": model_free}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,9 @@ A copy of ``repro.core.benchmark`` (the JAX package's module) kept
 import-free of it: instance names, duplicate rejection and the State
 protocol are byte-identical, so documents from both packages pair by
 name.  The tunable-kernel declaration (``Benchmark.set_tunable``, read
-by ``python -m repro_torch tune``) is the reference's; registration-time
-source capture waits for the lint slice.
+by ``python -m repro_torch tune``) is the reference's, and so is the
+registration-time source capture that instance fingerprints hash
+(:mod:`repro_torch.core.fingerprint`).
 
 SCOPE provides "the entire Google Benchmark library ... to configure and
 register the benchmark code".  This module reimplements the parts of that
@@ -54,6 +55,7 @@ raises ``ValueError`` on an unknown unit instead of ``assert`` (which
 """
 from __future__ import annotations
 
+import inspect
 import itertools
 import time
 from collections.abc import Mapping
@@ -452,6 +454,26 @@ BenchmarkFn = Callable[[State], None]
 FixtureFn = Callable[[Params], Any]
 
 
+def _capture_source(fn: Any) -> Tuple[Optional[str], str, int]:
+    """Best-effort ``(source, file, line)`` for a registered callable.
+
+    Captured eagerly at registration so the instance fingerprint
+    (:mod:`repro_torch.core.fingerprint`) still sees the text when the
+    defining module is later rewritten or the function was built
+    dynamically.
+    """
+    try:
+        source = inspect.getsource(fn)
+    except (OSError, TypeError):
+        return None, "", 0
+    try:
+        file = inspect.getsourcefile(fn) or ""
+        line = inspect.getsourcelines(fn)[1]
+    except (OSError, TypeError):
+        file, line = "", 0
+    return source, file, line
+
+
 @dataclass(frozen=True)
 class Tunable:
     """A family's tunable-kernel declaration (``python -m repro_torch
@@ -508,6 +530,13 @@ class Benchmark:
     tunable: Optional[Tunable] = None
     labels: Dict[str, str] = field(default_factory=dict)
     doc: str = ""
+    # source captured at registration time for the instance fingerprint
+    # (repro_torch.core.fingerprint) — None when inspect.getsource
+    # cannot see it (lambdas, REPL definitions)
+    source: Optional[str] = None
+    source_file: str = ""
+    source_line: int = 0
+    fixture_source: Optional[str] = None
 
     # -- typed sweep builders -------------------------------------------
     def param_space(self, space: Optional[ParamSpace] = None,
@@ -529,6 +558,7 @@ class Benchmark:
         before calibration; the context is handed to the body as
         ``state.fixture``."""
         self.fixture = fn
+        self.fixture_source = _capture_source(fn)[0]
         return self
 
     def set_sync(self, fn: Callable[[Any], Any]) -> "Benchmark":

@@ -40,6 +40,12 @@ EXAMPLES: Dict[str, List[Tuple[str, str]]] = {
          "--baseline results/history.jsonl"),
         ("store this run as the baseline for later gating",
          "python -m repro_torch run --save-baseline results/baseline.json"),
+        ("delta run: skip instances whose fingerprint (body/fixture/"
+         "kernel source, params, tuned artifact, torch/CUDA/nvcc version) "
+         "already has a measured record; replay them as cached",
+         "python -m repro_torch run --since --results-dir results"),
+        ("delta run, but records older than Aug 1 don't count as fresh",
+         "python -m repro_torch run --since 2026-08-01 --jobs 2"),
     ],
     "plan": [
         ("print every benchmark instance with its predicted cost and "
@@ -50,6 +56,25 @@ EXAMPLES: Dict[str, List[Tuple[str, str]]] = {
          "--costs results/20260731T120000-42"),
         ("plan only one backend's instances of the typed spaces",
          "python -m repro_torch plan --param backend=cuda"),
+        ("delta plan: print only what ci would re-measure now "
+         "(fingerprint-fresh instances are pruned)",
+         "python -m repro_torch plan --since --results-dir results"),
+    ],
+    "ci": [
+        ("per-commit gate: delta-plan against history, re-measure only "
+         "fingerprint-stale instances, judge them against the pooled "
+         "window, exit 1 on regression",
+         "python -m repro_torch ci --jobs 2 --results-dir results "
+         "--no-report"),
+        ("full sweep (no delta pruning) with a stricter gate",
+         "python -m repro_torch ci --full --threshold 0.05 --window 10 "
+         "--no-report"),
+        ("gate one scope's bf16 instances",
+         "python -m repro_torch ci --enable-scope mxu --param dtype=bf16 "
+         "--no-report"),
+        ("the same gate on the CPU",
+         "python -m repro_torch ci --device cpu --enable-scope instr "
+         "--results-dir results --no-report"),
     ],
     "tune": [
         ("screen + hill-climb the matmul tile space under a 16-trial "
@@ -82,6 +107,38 @@ EXAMPLES: Dict[str, List[Tuple[str, str]]] = {
         ("compare only the bf16 instances of two runs",
          "python -m repro_torch compare results/baseline.json "
          "results/20260731T120000-42 --param dtype=bf16"),
+    ],
+    "query": [
+        ("every bf16 record in the run history, as a table",
+         "python -m repro_torch query --param dtype=bf16"),
+        ("per-instance statistics for one family: mean/stddev and "
+         "streaming P² percentiles over run means and counters",
+         "python -m repro_torch query --family mxu/matmul --aggregate "
+         "--percentiles p50,p99,p999 --format json"),
+        ("one machine's records in a date range, as verbatim history "
+         "lines (byte-equivalent with or without the index)",
+         "python -m repro_torch query --sysinfo 3f2a9c1d --since "
+         "2026-08-01 --until 2026-08-07 --format jsonl"),
+        ("prove the index changes cost, not answers",
+         "python -m repro_torch query --family mxu/matmul --no-store "
+         "--format jsonl"),
+    ],
+    "store": [
+        ("build/refresh the SQLite index (incremental: only bytes past "
+         "the watermark are read)",
+         "python -m repro_torch store index --results-dir results"),
+        ("drop and re-index from scratch (byte-deterministic)",
+         "python -m repro_torch store index --rebuild"),
+        ("merge two lab machines' history shards into this store, "
+         "deduplicating whole runs by (run-id, sysinfo digest)",
+         "python -m repro_torch store ingest lab-a.jsonl lab-b.jsonl"),
+        ("index freshness, watermark and table counts",
+         "python -m repro_torch store status --format json"),
+        ("per-scope fingerprint coverage of card runs: instances fresh "
+         "vs stale vs never-run on this machine",
+         "python -m repro_torch store status --coverage"),
+        ("the same for a history of --device cpu runs",
+         "python -m repro_torch store status --coverage --device cpu"),
     ],
 }
 

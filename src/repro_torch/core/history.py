@@ -1,11 +1,10 @@
 """Append-only run-history store — ``results/history.jsonl``.
 
-A copy of ``repro.core.history``, with one difference: the reference
-reads a history through its SQLite store index (``history.db``) when
-one sits beside the file.  The port has no store yet, so
-:func:`_store_records` always returns None and every read scans the
-JSONL directly — the records the index would return, by the reference's
-own construction.
+A copy of ``repro.core.history``: records carry the instance
+``fingerprint`` (:mod:`repro_torch.core.fingerprint`) and mark delta-run
+replays ``cached``, and a history is read through its SQLite store
+index (``history.db``, :mod:`repro_torch.store.index`) when one sits
+beside the file — the records a direct scan returns, by construction.
 
 One-shot runs answer "how fast is it now"; continuous benchmarking
 (ROOT's continuous performance framework, exaCB's incremental
@@ -107,17 +106,21 @@ def iter_lines(path: str):
 
 def scan_history(path: str) -> List[Record]:
     """Direct linear scan of a history file — torn/garbage lines are
-    skipped, not fatal.  This is the reference semantics a store index
-    must reproduce exactly."""
+    skipped, not fatal.  This is the reference semantics the store
+    index (:mod:`repro_torch.store.index`) must reproduce exactly."""
     return [rec for _line, rec in iter_lines(path)]
 
 
 def load_history(path: str, store: bool = True) -> List[Record]:
     """Read a history file; a torn/garbage line is skipped, not fatal.
 
-    ``store`` keeps the reference's signature: with a store index the
-    records would come from it, and ``store=False`` forces the scan.
-    The port has no index (:func:`_store_records`), so both scan.
+    When an SQLite index (``history.db``, :mod:`repro_torch.store.index`)
+    sits next to the file, records come from it after a cheap
+    watermark refresh instead of a full re-parse — the store-backed
+    fast path behind ``compare --baseline results/history.jsonl``,
+    drift gating and the report's trend pages.  Any index problem
+    falls back to the direct scan (``store=False`` forces it); both
+    paths return identical records by construction.
     """
     if store:
         records = _store_records(path)
@@ -127,8 +130,22 @@ def load_history(path: str, store: bool = True) -> List[Record]:
 
 
 def _store_records(path: str) -> Optional[List[Record]]:
-    """Records via a store index: None, as the port has no store yet
-    (the reference reads ``repro.store.index`` here)."""
+    """Records via the SQLite index, or None when there is no usable
+    index for ``path`` (no db next to it, stale, or unreadable)."""
+    if not path.endswith(".jsonl") or not os.path.exists(path):
+        return None
+    from repro_torch.store.index import StoreStale, db_path, load_records
+    if not os.path.exists(db_path(path)):
+        return None
+    try:
+        return load_records(path)
+    except StoreStale as e:
+        log.warning("store index unusable (%s); scanning %s directly",
+                    e, path)
+    except Exception as e:  # noqa: BLE001 - a broken index must never
+        # break a read; the JSONL is the source of truth
+        log.warning("store index broken (%r); scanning %s directly",
+                    e, path)
     return None
 
 
@@ -202,6 +219,19 @@ def doc_counters(doc: Dict[str, Any]) -> Dict[str, Dict[str, float]]:
     return out
 
 
+def _cached_names(doc: Dict[str, Any]) -> set:
+    """Instance names whose every document record was materialized from
+    history (``cached: true``) rather than measured — a delta run's
+    skipped instances (repro_torch.core.fingerprint)."""
+    measured, cached = set(), set()
+    for rec in doc.get("benchmarks", []):
+        name = rec.get("run_name") or rec.get("name", "")
+        if not name:
+            continue
+        (cached if rec.get("cached") else measured).add(name)
+    return cached - measured
+
+
 def _verdict(prev: Optional[Record], mean: Optional[float],
              stddev: float, n: int, threshold: float, sigmas: float
              ) -> Tuple[str, Optional[float]]:
@@ -249,15 +279,13 @@ def append_run(results_dir: str, doc: Dict[str, Any],
     the sysinfo digest come from the document's own context, so history
     records stay reproducible from the run artifacts.  ``tag`` marks
     what produced the run (``"tune"`` for autotuning trials) so
-    consumers can tell trial records from ordinary benchmark runs.  The
-    reference also writes a record's ``fingerprint`` and ``cached``
-    (delta runs); the port has no delta runs yet, so its records carry
-    neither.  Its readers still skip ``cached`` records, as the
-    reference's do, in a shared history.
+    consumers can tell trial records from ordinary benchmark runs.
     """
     from .baseline import collect_stats
     ctx = doc.get("context", {})
     run_id = run_id or ctx.get("run_id") or "run"
+    fingerprints = ctx.get("fingerprints") or {}
+    cached_names = _cached_names(doc)
     path = history_path(results_dir)
     prior: List[Record] = []
     if os.path.exists(path):
@@ -289,6 +317,13 @@ def append_run(results_dir: str, doc: Dict[str, Any],
         }
         if tag:
             rec["tag"] = tag
+        if name in fingerprints:
+            rec["fingerprint"] = fingerprints[name]
+        if name in cached_names:
+            # a replayed (delta-skipped) instance: its mean is an echo of
+            # an older run, not a new measurement — drift pooling and
+            # delta freshness both ignore it
+            rec["cached"] = True
         if ratio is not None:
             rec["ratio"] = round(ratio, 6)
         if name in counters:

@@ -5,8 +5,11 @@ The port of ``repro.core.main``::
 
     python -m repro_torch [run] [flags...]       # run benchmarks (default)
     python -m repro_torch plan [flags...]        # print the work plan + costs
-    python -m repro_torch compare A.json B.json  # diff two result documents
+    python -m repro_torch ci [flags...]          # incremental run + drift gate
     python -m repro_torch tune <family> [...]    # autotune a kernel's tiles
+    python -m repro_torch compare A.json B.json  # diff two result documents
+    python -m repro_torch query [filters...]     # filter/aggregate run history
+    python -m repro_torch store <index|ingest|status>  # the result store
 
 Startup follows the reference's run stage:
 
@@ -27,20 +30,21 @@ Startup follows the reference's run stage:
   7. optionally diff against / store a baseline
      (:mod:`repro_torch.core.baseline`)
 
-The reference's other subcommands (``ci``, ``lint``, ``report``,
-``query``, ``store``) and its ``--since``, ``--lint`` and
+Every run stamps the instances' fingerprints
+(:mod:`repro_torch.core.fingerprint`) on its context, so history
+records carry them, and ``--since`` turns a run into a delta run.  The
+reference's ``lint`` and ``report`` subcommands and its ``--lint`` and
 ``--strict`` run flags are not ported yet: each is refused with "not yet
-ported", never ignored.  The reference also stamps ``fingerprints`` on
-every run's context; the port leaves that key out until it has
-``core/fingerprint.py``.  Documents of either package are read by
-either package's ``compare``.
+ported", never ignored.  Documents of either package are read by either
+package's ``compare``.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
-from typing import List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from . import logging as scope_logging
 from .baseline import (compare_documents, compare_main, format_comparisons,
@@ -60,10 +64,10 @@ from .scope import ScopeManager
 log = scope_logging.get_logger("main")
 
 #: Subcommands of ``python -m repro`` that later slices port.
-NOT_YET_PORTED_COMMANDS = ("ci", "lint", "report", "query", "store")
-#: ``run`` flags of the reference that need the fingerprints or the
-#: linter, which later slices port.
-NOT_YET_PORTED_FLAGS = ("--since", "--lint", "--strict")
+NOT_YET_PORTED_COMMANDS = ("lint", "report")
+#: ``run`` flags of the reference that need the linter, which a later
+#: slice ports.
+NOT_YET_PORTED_FLAGS = ("--lint", "--strict")
 
 _OVERVIEW = """\
 usage: python -m repro_torch [COMMAND] [flags...]
@@ -75,10 +79,18 @@ schedule the work, and compare results.
 commands:
   run       run benchmarks (the default when COMMAND is omitted)
   plan      print the work plan with predicted costs and worker bins
-  compare   mean/stddev-aware diff of two result documents (either
-            package's)
+  ci        continuous-benchmarking entrypoint: delta-plan against the
+            run history (only fingerprint-stale instances re-measure),
+            run, gate against windowed drift — exit 1 on regression
   tune      search a tunable family's kernel tile space and write the
             winner as the kernel's tuned.json default for that card
+  compare   mean/stddev-aware diff of two result documents (either
+            package's)
+  query     filter/aggregate the run history (store-indexed when
+            history.db exists; output equals a direct JSONL scan)
+  store     manage the SQLite result store: index (incremental),
+            ingest (merge fleet shards), status (--coverage: fingerprint
+            freshness)
 
 `python -m repro_torch COMMAND --help` shows each command's flags and
 examples.
@@ -97,8 +109,17 @@ def main(argv: Optional[List[str]] = None,
         return 2
     if argv and argv[0] == "compare":
         return compare_main(argv[1:])
+    if argv and argv[0] == "query":
+        from ..store.cli import query_main
+        return query_main(argv[1:])
+    if argv and argv[0] == "store":
+        from ..store.cli import store_main
+        return store_main(argv[1:])
     if argv and argv[0] == "plan":
         return plan_main(argv[1:], scope_modules)
+    if argv and argv[0] == "ci":
+        from .ci import ci_main
+        return ci_main(argv[1:], scope_modules)
     if argv and argv[0] == "tune":
         from .tune import tune_main
         return tune_main(argv[1:], scope_modules)
@@ -127,6 +148,19 @@ def _setup_scopes(scope_modules: Optional[List[str]],
 
     mgr.configure(enable=enable, disable=disable)
     return mgr, 0
+
+
+def _no_card_for(device: str) -> bool:
+    """Log and return True when a run sent to ``cuda`` finds no card: it
+    never carries on on the CPU."""
+    if device != "cuda":
+        return False
+    import torch
+    if torch.cuda.is_available():
+        return False
+    log.error("no CUDA device is available: the scopes run on the card; "
+              "pass --device cpu to run them on the CPU")
+    return True
 
 
 def _refuse_unported(argv: List[str]) -> bool:
@@ -203,6 +237,16 @@ def build_run_parser() -> argparse.ArgumentParser:
     sel.add_argument("--costs", default=None, metavar="PATH",
                      help="prior run directory or GB-JSON document used as "
                           "per-instance cost hints for LPT scheduling")
+    sel.add_argument("--since", nargs="?", const="", default=None,
+                     metavar="ISO",
+                     help="delta run: skip instances whose current "
+                          "fingerprint (body/fixture/kernel source, "
+                          "params, tuned artifact, torch/CUDA/nvcc "
+                          "version) already has a measured history record "
+                          "on this machine and device; their latest "
+                          "records replay into the merged document as "
+                          "cached.  An optional ISO prefix bounds "
+                          "freshness (records older than it don't count)")
     sel.add_argument("--baseline", default=None,
                      help="compare this run against a stored baseline "
                           "document/run directory (a history.jsonl path "
@@ -223,6 +267,43 @@ def _print_run_help(sel: argparse.ArgumentParser,
         argparse.ArgumentParser(prog="python -m repro_torch run",
                                 add_help=False, usage=argparse.SUPPRESS))
     print(flag_parser.format_help())
+
+
+def _delta_cached(mgr, results_dir: str, pattern: str,
+                  param_filter: Optional[Dict[str, List[str]]],
+                  fingerprints: Dict[str, str], since: str, device: str
+                  ) -> Dict[str, Dict[str, Any]]:
+    """``--since`` delta split: instance_id → vouching history record.
+
+    Consults the run history (store fast path via
+    :func:`repro_torch.core.history.load_history`, scan fallback) for the
+    sysinfo digest of a run on ``device`` here: a ``--device cpu`` record
+    never vouches for a card run, nor the reverse.  Instances whose
+    current fingerprint already has a fresh measured record are returned
+    for cached materialization, the rest will execute.  On a host with
+    no card, nothing vouches for a ``cuda`` run (its digest names the
+    card), and CUDA is not touched.
+    """
+    from .fingerprint import delta_split
+    from .history import history_path, load_history
+    from .sysinfo import build_context, context_digest
+    plan = build_plan(mgr, REGISTRY, pattern, param_filter=param_filter)
+    if device == "cuda":
+        import torch
+        if not torch.cuda.is_available():
+            log.warning("delta plan (--since): no CUDA device here, so no "
+                        "history record can vouch for a card run; all %d "
+                        "instance(s) to run", len(plan.items))
+            return {}
+    hpath = history_path(results_dir)
+    records = load_history(hpath) if os.path.exists(hpath) else []
+    digest = context_digest(build_context(device=device))
+    pending, cached = delta_split(plan.items, fingerprints, records,
+                                  digest, since=since)
+    log.info("delta plan (--since%s): %d fresh (cached) / %d to run of "
+             "%d instance(s)", f" {since}" if since else "",
+             len(cached), len(pending), len(plan.items))
+    return cached
 
 
 def run_main(argv: List[str],
@@ -249,6 +330,14 @@ def run_main(argv: List[str],
         return 2
     if sel_ns.resume and sel_ns.shard_grain == "scope":
         log.error("--resume requires benchmark shard grain "
+                  "(drop --shard-grain scope)")
+        return 2
+    if sel_ns.since is not None and not sel_ns.results_dir:
+        log.error("--since requires --results-dir (the run history is "
+                  "the freshness source)")
+        return 2
+    if sel_ns.since is not None and sel_ns.shard_grain == "scope":
+        log.error("--since requires benchmark shard grain "
                   "(drop --shard-grain scope)")
         return 2
 
@@ -288,17 +377,24 @@ def run_main(argv: List[str],
         return 1
 
     device = FLAGS.get("device")
-    if device == "cuda":
-        import torch
-        if not torch.cuda.is_available():
-            log.error("no CUDA device is available: the scopes run on the "
-                      "card; pass --device cpu to run them on the CPU")
-            return 2
+    if _no_card_for(device):
+        return 2
     # don't dispatch workers for scopes the filter selects nothing from —
     # each would pay a fresh interpreter and a torch import for 0 records
     matched = {b.scope for b in benches}
     mgr.configure(disable=[name for name, _ in scope_worklist(mgr)
                            if name not in matched])
+
+    # fingerprints ride on every run's context so history records carry
+    # them (delta planning and coverage read them back)
+    from .fingerprint import registry_fingerprints
+    fingerprints = registry_fingerprints(benches, device)
+
+    cached = None
+    if sel_ns.since is not None:
+        cached = _delta_cached(mgr, sel_ns.results_dir, pattern,
+                               param_filter, fingerprints, sel_ns.since,
+                               device)
 
     opts = OrchestratorOptions(
         jobs=sel_ns.jobs,
@@ -319,9 +415,11 @@ def run_main(argv: List[str],
         run_id=sel_ns.resume or sel_ns.run_id,
         resume=bool(sel_ns.resume),
         cost_source=sel_ns.costs,
+        cached_results=cached,
     )
     result = execute(mgr, REGISTRY, opts,
-                     context_extra={"scopes": mgr.status()})
+                     context_extra={"scopes": mgr.status(),
+                                    "fingerprints": fingerprints})
     doc = result.doc
 
     out = FLAGS.get("benchmark_out")
@@ -364,6 +462,15 @@ def build_plan_parser() -> argparse.ArgumentParser:
                     metavar="KEY=VALUE",
                     help="plan only instances whose typed parameter KEY "
                          "equals VALUE (repeatable)")
+    ap.add_argument("--results-dir", default="results",
+                    help="history location --since consults "
+                         "(default: results)")
+    ap.add_argument("--since", nargs="?", const="", default=None,
+                    metavar="ISO",
+                    help="delta plan: drop instances whose current "
+                         "fingerprint already has a measured history "
+                         "record on this machine and --device (optional "
+                         "ISO prefix bounds freshness)")
     return ap
 
 
@@ -414,6 +521,21 @@ def plan_main(argv: List[str],
         return 1
 
     items = plan.items
+    n_cached = 0
+    if ns.since is not None:
+        from .fingerprint import registry_fingerprints
+        device = FLAGS.get("device")
+        fingerprints = registry_fingerprints(REGISTRY.filter(
+            pattern, params=param_filter), device)
+        cached = _delta_cached(mgr, ns.results_dir, pattern, param_filter,
+                               fingerprints, ns.since, device)
+        items = [i for i in plan.items if i.instance_id not in cached]
+        n_cached = len(plan.items) - len(items)
+        if not items:
+            print(f"0 instance(s) to run; all {n_cached} "
+                  f"fingerprint-fresh (--since)")
+            return 0
+
     bins = plan.bins(ns.jobs, items)
     bin_of = {item.instance_id: k
               for k, b in enumerate(bins) for item in b}
@@ -426,10 +548,12 @@ def plan_main(argv: List[str],
               f"{hint:>5}  {bin_of[item.instance_id]:>3d}  "
               f"{item.instance_id}")
     loads = [sum(plan.cost_of(i) for i in b) for b in bins]
+    cached_note = (f" ({n_cached} fingerprint-fresh instance(s) pruned "
+                   f"by --since)" if n_cached else "")
     print(f"\n{len(items)} instance(s) across {len(bins)} worker "
           f"bin(s); predicted total "
           f"{sum(plan.cost_of(i) for i in items):.2f}s, "
-          f"makespan {max(loads):.2f}s")
+          f"makespan {max(loads):.2f}s{cached_note}")
     return 0
 
 

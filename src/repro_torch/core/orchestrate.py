@@ -53,10 +53,13 @@ Shared machinery at both grains:
     repro_torch compare A.json B.json``);
   * **run history** — a persisted run appends one record per benchmark
     instance to ``<results-dir>/history.jsonl`` at merge time
-    (:mod:`repro_torch.core.history`).
-
-The reference's delta runs (``--since``, fingerprint-fresh instances
-replayed from history) need ``core/fingerprint.py`` and are not ported.
+    (:mod:`repro_torch.core.history`), which ``--baseline
+    results/history.jsonl`` gates against;
+  * **delta runs** — ``--since`` and ``python -m repro_torch ci`` hand
+    the orchestrator the fingerprint-fresh instances
+    (:mod:`repro_torch.core.fingerprint`) as ``cached_results``: each is
+    replayed from its latest history record as a ``cached: true``
+    record instead of executed, so the merged document stays complete.
 """
 from __future__ import annotations
 
@@ -153,12 +156,18 @@ class OrchestratorOptions:
     #                                     instances whose shard is complete
     cost_source: Optional[str] = None   # prior run dir / GB doc → cost hints
     subprocess_timeout: float = 1800.0
+    # delta runs (--since / repro_torch ci): instance_id → latest history
+    # record vouching for a fingerprint-fresh instance; those instances
+    # are materialized as cached results instead of executed
+    cached_results: Optional[Dict[str, Dict[str, Any]]] = None
+    history_tag: Optional[str] = None   # tag for appended history records
 
     def grain(self) -> str:
         if self.shard_grain != "auto":
             return self.shard_grain
-        # resuming only makes sense at instance grain
-        return "benchmark" if self.jobs > 1 or self.resume else "scope"
+        # resuming/delta-skipping only makes sense at instance grain
+        return "benchmark" if self.jobs > 1 or self.resume \
+            or self.cached_results is not None else "scope"
 
     def mode(self) -> str:
         if self.isolate != "auto":
@@ -440,6 +449,38 @@ def _gb_error_record(name: str, status: str, error: str) -> Dict[str, Any]:
     }
 
 
+def cached_instance_result(item: PlanItem, rec: Dict[str, Any]
+                           ) -> InstanceResult:
+    """Materialize a delta-skipped instance from its history record.
+
+    The merged document must stay *complete* on a sparse delta run, so
+    the skipped instance contributes a schema-conforming GB record
+    replaying its latest measured mean — marked ``cached: true`` (plus
+    the run it echoes) so history appending, drift pooling and readers
+    can tell a replay from a measurement.
+    """
+    gb: Dict[str, Any] = {
+        "name": item.name, "run_name": item.name, "run_type": "iteration",
+        "repetitions": 1, "repetition_index": 0, "threads": 1,
+        "iterations": max(1, int(rec.get("n") or 1)),
+        "real_time": float(rec.get("mean_s") or 0.0),
+        "cpu_time": float(rec.get("mean_s") or 0.0),
+        "time_unit": "s",
+        "cached": True,
+        "cached_from_run": rec.get("run_id", ""),
+    }
+    counters = rec.get("counters")
+    if isinstance(counters, dict):
+        for key, value in counters.items():
+            if isinstance(value, (int, float)) \
+                    and not isinstance(value, bool):
+                gb.setdefault(key, value)
+    doc = {"context": {}, "benchmarks": [gb]}
+    now = time.time()
+    return InstanceResult(item, OK, doc, duration_s=0.0,
+                          started=now, finished=now, cached=True)
+
+
 def scope_error_record(shard: ScopeShard) -> Dict[str, Any]:
     """A schema-conforming GB record marking a failed/crashed scope."""
     return _gb_error_record(f"{shard.scope}/SCOPE_FAILED", shard.status,
@@ -493,10 +534,10 @@ def _atomic_write_json(doc: Dict[str, Any], path: str) -> None:
 
 
 def _append_history(results_dir: str, doc: Dict[str, Any],
-                    run_id: str) -> None:
+                    run_id: str, tag: Optional[str] = None) -> None:
     """Best-effort run-history append — never fails a finished run."""
     try:
-        append_run(results_dir, doc, run_id=run_id)
+        append_run(results_dir, doc, run_id=run_id, tag=tag)
     except Exception:  # noqa: BLE001 - history is an artifact, not a gate
         log.warning("run-history append failed for %s:\n%s", run_id,
                     traceback.format_exc(limit=2))
@@ -864,6 +905,23 @@ def _execute_plan_grain(mgr, registry, opts: OrchestratorOptions,
                     results[item.instance_id] = res
             log.info("resume %s: %d/%d instance(s) already complete",
                      run_id, len(results), len(plan.items))
+        if opts.cached_results:
+            # delta run: fingerprint-fresh instances replay their latest
+            # history record instead of executing
+            # (repro_torch.core.fingerprint)
+            skipped = 0
+            for item in plan.items:
+                rec = opts.cached_results.get(item.instance_id)
+                if rec is None or item.instance_id in results:
+                    continue
+                res = cached_instance_result(item, rec)
+                if out_dir:
+                    _write_instance_shard(spool, res)
+                results[item.instance_id] = res
+                skipped += 1
+            log.info("delta %s: %d/%d instance(s) fresh (cached), "
+                     "%d to run", run_id, skipped, len(plan.items),
+                     len(plan.items) - len(results))
         pending = [i for i in plan.items if i.instance_id not in results]
 
         if out_dir:
@@ -910,7 +968,8 @@ def _execute_plan_grain(mgr, registry, opts: OrchestratorOptions,
             log.info("wrote %s (%d records from %d instances)",
                      os.path.join(out_dir, "merged.json"),
                      len(doc["benchmarks"]), len(plan.items))
-            _append_history(opts.results_dir, doc, run_id)
+            _append_history(opts.results_dir, doc, run_id,
+                            tag=opts.history_tag)
         return RunResult(doc=doc, shards=shards, run_id=run_id,
                          out_dir=out_dir, plan=plan,
                          instances=[results[i.instance_id]
@@ -943,6 +1002,9 @@ def execute(mgr, registry, opts: OrchestratorOptions,
         # timestamps resume exists to preserve
         raise ValueError("--resume requires benchmark shard grain "
                          "(drop --shard-grain scope)")
+    if opts.cached_results is not None:
+        raise ValueError("--since delta runs require benchmark shard "
+                         "grain (drop --shard-grain scope)")
 
     items = scope_worklist(mgr)
     run_id = opts.run_id or default_run_id()
@@ -992,7 +1054,8 @@ def execute(mgr, registry, opts: OrchestratorOptions,
         log.info("wrote %s (%d records from %d shards)",
                  os.path.join(out_dir, "merged.json"),
                  len(doc["benchmarks"]), len(shards))
-        _append_history(opts.results_dir, doc, run_id)
+        _append_history(opts.results_dir, doc, run_id,
+                        tag=opts.history_tag)
     return RunResult(doc=doc, shards=shards, run_id=run_id, out_dir=out_dir)
 
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 import re
 from typing import Callable, Dict, List, Optional, Sequence
 
-from .benchmark import Benchmark, BenchmarkFn, match_params
+from .benchmark import Benchmark, BenchmarkFn, _capture_source, match_params
 
 
 class BenchmarkRegistry:
@@ -81,7 +81,11 @@ def register_benchmark(name: str, fn: BenchmarkFn, scope: str = "core",
     """Imperative registration (GB ``RegisterBenchmark`` analogue)."""
     reg = registry if registry is not None else REGISTRY
     full = f"{scope}/{name}" if not name.startswith(scope + "/") else name
-    return reg.register(Benchmark(name=full, fn=fn, scope=scope, **kwargs))
+    bench = Benchmark(name=full, fn=fn, scope=scope, **kwargs)
+    # capture the body's source now for the instance fingerprint
+    # (repro_torch.core.fingerprint); None when inspect cannot see it
+    bench.source, bench.source_file, bench.source_line = _capture_source(fn)
+    return reg.register(bench)
 
 
 def benchmark(name: Optional[str] = None, scope: str = "core",

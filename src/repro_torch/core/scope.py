@@ -40,9 +40,12 @@ log = get_logger("scope")
 BUILTIN_SCOPES = [
     "repro_torch.scopes.example_scope",
     "repro_torch.scopes.mxu_scope",
-    "repro_torch.scopes.histo_scope",
+    "repro_torch.scopes.comm_scope",
     "repro_torch.scopes.nn_scope",
+    "repro_torch.scopes.instr_scope",
+    "repro_torch.scopes.histo_scope",
     "repro_torch.scopes.linalg_scope",
+    "repro_torch.scopes.io_scope",
 ]
 
 

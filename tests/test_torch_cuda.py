@@ -686,3 +686,94 @@ def test_tune_on_the_card_leaves_the_tree_clean(cuda, tmp_path):
                           "tune.json").read_text())
     assert summary["baseline"]["params"] == {"br": 1}
     assert _tree_state(root) == before
+
+
+# -- the model-free scopes and the incremental loop on the card ---------------
+
+def test_comm_scope_all_reduces_on_nccl(cuda, tmp_path):
+    """``all_reduce_measured`` under ``--device cuda``: a one-rank NCCL
+    group in the worker, every record free of errors, ``devices`` 1."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [os.path.join(root, "src"),
+                      os.environ.get("PYTHONPATH")])))
+    code = (
+        "import json, sys\n"
+        "import torch.distributed as dist\n"
+        "from repro_torch.core.main import main\n"
+        "rc = main(['run', '--enable-scope', 'comm', '--benchmark_filter',"
+        " 'comm/all_reduce', '--benchmark_min_time', '0.01',"
+        " '--results-dir', '', '--benchmark_out', sys.argv[1]])\n"
+        "print(json.dumps({'rc': rc, 'backend': dist.get_backend()}))\n")
+    out = tmp_path / "comm.json"
+    r = subprocess.run([sys.executable, "-c", code, str(out)],
+                       capture_output=True, text=True, env=env, cwd=root,
+                       timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    assert got == {"rc": 0, "backend": "nccl"}
+    records = json.loads(out.read_text())["benchmarks"]
+    assert len(records) == 3
+    assert all(not rec.get("error_occurred") and rec["devices"] == 1
+               for rec in records), records
+
+
+def test_checkpoint_round_trip_of_a_cuda_bf16_tree(cuda, tmp_path):
+    """A CUDA tree is written from the host and restored as host
+    tensors with the same bits (bfloat16 compared as its payload)."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    gen = torch.Generator(cuda).manual_seed(0)
+    tree = {"w": torch.randn((64, 33), generator=gen, device=cuda,
+                             dtype=torch.bfloat16),
+            "b": [torch.randn((7,), generator=gen, device=cuda),
+                  torch.tensor(3, dtype=torch.int32, device=cuda)]}
+    path = save_checkpoint(str(tmp_path / "ck"), tree, step=2)
+    out, step = load_checkpoint(path, tree)
+    assert step == 2
+    assert out["w"].device.type == "cpu" and out["w"].dtype == torch.bfloat16
+    assert torch.equal(out["w"].view(torch.int16),
+                       tree["w"].cpu().view(torch.int16))
+    assert torch.equal(out["b"][0], tree["b"][0].cpu())
+    assert out["b"][1].item() == 3
+
+
+def test_fingerprint_reads_the_cards_artifact(cuda, tmp_path, monkeypatch):
+    """A tuned artifact entry under this card's name moves the mxu
+    fingerprint of a card run; an entry for another card does not."""
+    from repro_torch.core import fingerprint as fp
+    from repro_torch.core.flags import FlagRegistry
+    from repro_torch.core.hooks import HookChain
+    from repro_torch.core.registry import BenchmarkRegistry
+    from repro_torch.core.scope import ScopeManager
+    from repro_torch.kernels import tuning
+    mgr = ScopeManager(registry=BenchmarkRegistry(), flags=FlagRegistry(),
+                       hooks=HookChain())
+    mgr.load(["repro_torch.scopes.mxu_scope"])
+    mgr.register_all()
+    bench = mgr.registry.all()[0]
+    card = torch.cuda.get_device_name(0)
+    assert fp.artifact_device("cuda") == card
+    monkeypatch.setenv(tuning.DIR_ENV, str(tmp_path))
+    tuning.invalidate_cache()
+    path = str(tmp_path / "matmul" / "tuned.json")
+    try:
+        base = fp.family_digest(bench, "cuda")
+        other = "NVIDIA H100 PCIe" if "PCIe" not in card \
+            else "NVIDIA H100 80GB HBM3"
+        tuning.write_tuned("matmul", {"config": {"bm": 64, "bn": 64,
+                                                 "bk": 64}},
+                           device=other, variant="wgmma", path=path)
+        assert fp.family_digest(bench, "cuda") == base
+        tuning.write_tuned("matmul", {"config": {"bm": 64, "bn": 64,
+                                                 "bk": 64}},
+                           device=card, variant="wgmma", path=path)
+        assert fp.family_digest(bench, "cuda") != base
+        assert fp.family_digest(bench, "cpu") == \
+            fp.family_digest(bench, "cpu")
+    finally:
+        monkeypatch.delenv(tuning.DIR_ENV)
+        tuning.invalidate_cache()

@@ -220,9 +220,7 @@ def test_bridge_carries_numpy_and_bfloat16():
 # -- the CLI ----------------------------------------------------------------
 
 @pytest.mark.parametrize("argv", [
-    ["run", "--since", "2026-08-01"], ["run", "--strict"], ["--since"],
-    ["ci"], ["run", "--lint"], ["lint"],
-    ["plan", "--since"], ["report", "x"], ["store", "index"],
+    ["run", "--strict"], ["run", "--lint"], ["lint"], ["report", "x"],
 ])
 def test_unported_surface_is_refused(argv):
     assert port_main.main(argv) == 2

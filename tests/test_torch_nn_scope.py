@@ -101,7 +101,8 @@ def test_nn_run_on_cpu_pairs_with_reference(tmp_path):
     assert ctx["backend"] == "cpu"
     assert ctx["scopes"] == {"example": "disabled", "mxu": "disabled",
                              "histo": "disabled", "nn": "enabled",
-                             "linalg": "disabled"}
+                             "linalg": "disabled", "instr": "disabled",
+                             "comm": "disabled", "io": "disabled"}
 
 
 def test_nn_param_selects_the_same_small_point(tmp_path):

@@ -85,7 +85,8 @@ def test_slice_run_on_cpu_pairs_with_reference(tmp_path):
     assert ctx["backend"] == "cpu" and ctx["allow_tf32"] is False
     assert ctx["scopes"] == {"example": "disabled", "mxu": "enabled",
                              "histo": "enabled", "nn": "disabled",
-                             "linalg": "disabled"}
+                             "linalg": "disabled", "instr": "disabled",
+                             "comm": "disabled", "io": "disabled"}
 
 
 def _families(mgr_cls, registry, flags, hooks, name):
