@@ -54,15 +54,31 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      heads a block are logged, and the whole ``ssd`` call is split into
      the kernel and its torch remainder.  No single torch call computes
      it, so its library time is null;
-  8. host path: each step of a histogram and a float32 flash wrapper
+  8. models: llama3.2-1b and mamba2-780m at their published widths and
+     depths through the port's model API (``repro_torch.models.build``;
+     weights from its ``init``, seeded), a batch of 2 x 4096 random
+     tokens in bfloat16 under ``torch.inference_mode()``: the loss, the
+     median ms of ``MODEL_STEPS`` steps after a warm one (each fenced
+     with ``torch.cuda.synchronize``), tokens/s, the forward's model
+     FLOPs (2·params·tokens plus causal attention), ``mfu`` against the
+     card's bf16 peak (port ``core/sysinfo.py``) and
+     ``max_memory_allocated``.  The bf16 loss must be finite and within
+     ``MODEL_BF16_TOL`` of the float32 loss of the same weights (the bf16
+     loss with cuBLAS's reduced-precision reduction off is logged), and
+     a float32 run at B 1 x S 256 must match the port's CPU run on the
+     same weights (loss ``MODEL_CPU_LOSS_TOL``, logits
+     ``MODEL_CPU_LOGITS_TOL``).  No hand-written kernel lies on this
+     path: the models use the plain formulations, as the reference's do;
+  9. host path: each step of a histogram and a float32 flash wrapper
      call (argument checks, custom_op dispatch, output allocation, device
      and stream lookup, library lookup, the ctypes call, ``_build.check``,
      and for flash the tile's resolution through the tuning registry,
      ``tuning_resolve``) timed alone over ``HOST_CALLS`` calls on the
      host clock;
-  9. the main path: ``repro_torch.core.main.main(["run", ...])`` over
-     all eight scopes of the port (example, mxu, comm, nn, instr, histo,
-     linalg, io; one process, nothing persisted: ``--results-dir ''``),
+ 10. the main path: ``repro_torch.core.main.main(["run", ...])`` over
+     all nine scopes of the port (example, mxu, comm, nn, instr, histo,
+     linalg, io, model; one process, nothing persisted: ``--results-dir
+     ''``),
      with the kernels' launch counts set to 0 just before and read just
      after.  Every scope must load and be enabled, every instance must
      have a record without error and with ``compile_time_s``, all five
@@ -77,11 +93,14 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      on an NCCL process group (the backend is logged), the 24
      ``collective_modeled_v5e`` rows must equal the reference's analytic
      model, computed here from its formula, and the instr scope's
-     ``gelu`` op is held once to the tanh formula on the card;
- 10. the same main path again in a child process under
+     ``gelu`` op is held once to the tanh formula on the card; the
+     model scope's five ``loss_step_reduced`` rows must have records, and
+     ``dryrun_rooflines`` may skip only with the reference's message,
+     when ``results/dryrun/`` holds no cell;
+ 11. the same main path again in a child process under
      ``torch.profiler``: the device's idle share over its activity
      window;
- 11. the run pipeline, through ``python -m repro_torch`` in child
+ 12. the run pipeline, through ``python -m repro_torch`` in child
      processes over the linalg, mxu and histo scopes at
      ``--benchmark_min_time 0.02``: ``plan`` lists the instances
      ``--benchmark_list_tests`` lists; a ``--jobs 2 --shard-grain
@@ -96,7 +115,7 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      2·m·n·k exactly and ``bytes_accessed`` > 0.  One ``{"pipeline":
      ...}`` line holds these facts and the inline and ``--jobs 2``
      walls;
- 12. the tune phase: ``python -m repro_torch tune <family> --budget 8
+ 13. the tune phase: ``python -m repro_torch tune <family> --budget 8
      --benchmark_min_time 0.02 --no-report`` in a child process for each
      of ``TUNE_FAMILIES`` (mxu's with ``--param n=1024``), with
      ``REPRO_TUNED_DIR`` under ``build/`` so that no ``tuned.json`` lands
@@ -105,7 +124,7 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      One line a family: the instance, the builtin tile and its
      ``real_time``, the winner and its ``real_time``, the speedup and the
      trials used; then one ``{"tune": [...]}`` line;
- 13. the incremental loop, through ``python -m repro_torch`` in child
+ 14. the incremental loop, through ``python -m repro_torch`` in child
      processes over the example and mxu scopes, with ``REPRO_TUNED_DIR``
      under ``build/``: a run writes history records that each carry a
      ``fingerprint`` and a context with ``fingerprints``; a ``--since``
@@ -117,7 +136,8 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      mxu`` lists the mxu records; ``store status --coverage`` counts
      every instance of the two scopes fresh.  One ``{"incremental":
      ...}`` line holds the counts, the exit codes and the run walls;
- 14. a ``{"host_path_us": ..., "main_path_idle": ...}`` line, then one
+ 15. a ``{"host_path_us": ..., "main_path_idle": ...}`` line, a
+     ``{"models": [...]}`` line (phase 8's rows), then one
      ``{"kernels": [...]}`` line: per kernel its launches on the main
      path (with each variant's, for matmul, flash attention and SSD), its
      largest error against the plain version, and its time,
@@ -126,7 +146,7 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      instantiated tile under ``tiles``).
      ``ms`` is the time per call of back-to-back calls through the
      wrapper (CUDA events), ``device_ms`` the kernels alone (profiler);
- 15. last line: ``{"ok": true, "device": {...}}``.
+ 16. last line: ``{"ok": true, "device": {...}}``.
 
 Every comparison holds the kernel to its plain version on the same
 inputs with ``atol = rtol = tol``, ``tol`` being the reference's own
@@ -342,7 +362,7 @@ def phase_device() -> dict:
     log(card)
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
-    return dict(target_hardware(name))
+    return dict(target_hardware(name), card=card)
 
 
 #: Tensor-core instructions each library must hold: the bf16 ``wgmma``
@@ -893,7 +913,12 @@ def expected_instances() -> list:
 
 
 MAIN_SCOPES = ["example", "mxu", "comm", "nn", "instr", "histo", "linalg",
-               "io"]
+               "io", "model"]
+
+
+#: The model scope's default ``model/dryrun_dir``, relative to the run's
+#: working directory.
+DRYRUN_DIR = "results/dryrun"
 
 
 def main_argv(out: str) -> list:
@@ -1043,6 +1068,15 @@ def phase_main_path() -> dict:
     missing = [n for n in expected_instances() if n not in records]
     if missing:
         raise AssertionError(f"instances without a record: {missing}")
+    dryrun = records["model/dryrun_rooflines"]
+    if dryrun.get("skipped"):
+        # as in the reference: no dry-run cells in the checkout, no row
+        if glob.glob(os.path.join(DRYRUN_DIR, "*.json")) or \
+                dryrun.get("skip_message") != \
+                f"no dry-run results under {DRYRUN_DIR}":
+            raise AssertionError(f"model/dryrun_rooflines: {dryrun}")
+        log(f"model/dryrun_rooflines skipped: {dryrun['skip_message']}")
+        del records["model/dryrun_rooflines"]
     for name, r in records.items():
         if r.get("error_occurred") or r.get("skipped"):
             raise AssertionError(f"{name}: {r.get('error_message')}")
@@ -1094,7 +1128,7 @@ def phase_main_path() -> dict:
         f"{k} {v:.2f}" for k, v in per_scope.walls.items()))
     for name, r in records.items():
         if name.startswith(("mxu/", "histo/", "nn/", "linalg/", "instr/",
-                            "comm/all_reduce", "io/")):
+                            "comm/all_reduce", "io/", "model/")):
             log(f"  {name}: {r['real_time']:.3f} {r['time_unit']} "
                 f"(compile {r['compile_time_s']:.3f} s)")
     return launches, by_variant, model_free
@@ -1137,9 +1171,9 @@ print(json.dumps({"rc": rc, "wall_s": wall, "device_spans": len(spans),
 
 
 def phase_idle_share() -> dict:
-    """The device's idle share over the main path (phase 8 run again,
+    """The device's idle share over the main path (phase 10 run again,
     profiled, in a child process: the profiler's own cost on the host
-    is in this run's wall, not in phase 8's records)."""
+    is in this run's wall, not in phase 10's records)."""
     r = subprocess.run(
         [sys.executable, "-c", _IDLE_CHILD, os.path.join(ROOT, "src"),
          json.dumps(main_argv("")[:-2])],
@@ -1631,11 +1665,205 @@ def phase_host_path() -> dict:
     return split
 
 
+#: The full-width models of the model phase: llama3.2-1b and mamba2-780m
+#: at their published widths and depths, one batch of ``MODEL_BATCH``
+#: rows of ``MODEL_SEQ`` random tokens (train_4k's sequence, the batch
+#: cut from 256 to what one step on one card holds), at least
+#: ``MODEL_STEPS`` timed steps after a warm one.
+MODEL_ARCHS = ("llama3.2-1b", "mamba2-780m")
+MODEL_BATCH, MODEL_SEQ, MODEL_STEPS = 2, 4096, 5
+#: The bfloat16 loss against the float32 loss of the same weights and
+#: tokens on the card.
+MODEL_BF16_TOL = 5e-2
+#: The card's float32 run against the port's CPU run (same weights and
+#: tokens, B 1 x S ``MODEL_CPU_SEQ``): the loss (absolute) and the
+#: logits (largest absolute difference).
+MODEL_CPU_SEQ = 256
+MODEL_CPU_LOSS_TOL, MODEL_CPU_LOGITS_TOL = 1e-4, 5e-3
+
+
+def forward_flops(cfg, B, S) -> float:
+    """A forward's model FLOPs: 2·params·tokens plus causal attention's
+    2·B·S²·H·hd (QKᵀ and PV, halved by the mask) per attention layer."""
+    attn_layers = sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
+    return 2.0 * cfg.num_params() * B * S \
+        + attn_layers * 2.0 * B * S * S * cfg.num_heads * cfg.hd
+
+
+def profile_step(fn, top: int = 8) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the device's busy
+    time and idle share over the call's wall, and the ``top`` aten ops
+    by the device time of the kernels they launched (ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
+    busy, reach = 0, None
+    for a, b in spans:
+        if reach is None or a > reach:
+            busy += b - a
+            reach = b
+        elif b > reach:
+            busy += b - reach
+            reach = b
+    ops = sorted(((e.key, e.self_device_time_total / 1e3)
+                  for e in prof.key_averages()
+                  if e.key.startswith("aten::")
+                  and e.self_device_time_total > 0),
+                 key=lambda kv: -kv[1])
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e6,
+            "idle_share": 1 - busy / 1e9 / wall, "kernels": len(spans),
+            "device_ms_by_op": dict(ops[:top])}
+
+
+def phase_models(hw: dict) -> list:
+    """Each of ``MODEL_ARCHS`` at full width on the card through the
+    port's model API (weights from its ``init``, seeded): the bfloat16
+    loss step's median ms, tokens/s, model FLOPs, ``mfu`` and peak
+    memory; the bfloat16 loss against the float32 one (and with cuBLAS's
+    bf16 reduced-precision reduction off, to see what it moves); and a
+    float32 run at B 1 against the port's CPU run on the same weights."""
+    from repro_torch.models import build, get_config
+    from repro_torch.models import tree
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("float32 products must not run in TF32 here")
+    rows = []
+    for arch in MODEL_ARCHS:
+        cfg = get_config(arch)
+        api, api32 = build(cfg), build(cfg.override(dtype="float32"))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        t0 = time.perf_counter()
+        params = api.init(gen)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        # the tree's own count; the config's (the FLOPs' N) counts two
+        # norms a layer, where a Mamba2 block holds one
+        n_weights = sum(t.numel() for _, t in tree.leaves(params))
+        tokens = torch.randint(0, cfg.vocab_size, (MODEL_BATCH, MODEL_SEQ),
+                               generator=gen, device="cuda",
+                               dtype=torch.int32)
+        batch = {"tokens": tokens}
+
+        def step(a=api, b=batch):
+            with torch.inference_mode():
+                return a.loss(params, b)[0]
+        torch.cuda.reset_peak_memory_stats()
+        loss = step()                                   # warm
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(MODEL_STEPS):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        ms = sorted(times)[len(times) // 2]
+        profiled = profile_step(step)
+        flops = forward_flops(cfg, MODEL_BATCH, MODEL_SEQ)
+        loss32 = step(api32)
+        reduced = torch.backends.cuda.matmul.\
+            allow_bf16_reduced_precision_reduction
+        torch.backends.cuda.matmul.\
+            allow_bf16_reduced_precision_reduction = False
+        try:
+            loss_full_sums = step()
+        finally:
+            torch.backends.cuda.matmul.\
+                allow_bf16_reduced_precision_reduction = reduced
+        loss, loss32, loss_full_sums = (float(loss), float(loss32),
+                                        float(loss_full_sums))
+        if not (math.isfinite(loss) and abs(loss - loss32)
+                <= MODEL_BF16_TOL):
+            raise AssertionError(f"{arch}: bf16 loss {loss} against float32 "
+                                 f"{loss32} (tol {MODEL_BF16_TOL})")
+        # float32 at B 1 x S MODEL_CPU_SEQ: the card against the CPU
+        small = {"tokens": tokens[:1, :MODEL_CPU_SEQ].contiguous()}
+        with torch.inference_mode():
+            card_logits = api32.logits(params, small)[0].cpu()
+            card_loss = float(api32.loss(params, small)[0])
+        cpu_params = _to_cpu(params)
+        del params
+        torch.cuda.empty_cache()
+        small_cpu = {"tokens": small["tokens"].cpu()}
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            cpu_logits = api32.logits(cpu_params, small_cpu)[0]
+            cpu_loss = float(api32.loss(cpu_params, small_cpu)[0])
+        cpu_s = time.perf_counter() - t0
+        del cpu_params
+        logits_err = (card_logits - cpu_logits).abs().max().item()
+        loss_err = abs(card_loss - cpu_loss)
+        if not (loss_err <= MODEL_CPU_LOSS_TOL
+                and logits_err <= MODEL_CPU_LOGITS_TOL):
+            raise AssertionError(
+                f"{arch}: float32 on the card against the CPU: loss "
+                f"{card_loss} vs {cpu_loss} ({loss_err:.3g}, tol "
+                f"{MODEL_CPU_LOSS_TOL}), logits max_abs_err "
+                f"{logits_err:.3g} (tol {MODEL_CPU_LOGITS_TOL})")
+        row = {
+            "arch": arch, "family": cfg.family, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "params": cfg.num_params(),
+            "weights_in_tree": n_weights,
+            "batch": MODEL_BATCH, "seq": MODEL_SEQ, "dtype": cfg.dtype,
+            "loss": loss, "loss_float32": loss32,
+            "loss_bf16_full_sums": loss_full_sums,
+            "ms": ms, "step_ms": times,
+            "tokens_per_s": MODEL_BATCH * MODEL_SEQ / (ms / 1e3),
+            "model_flops": flops,
+            "mfu": flops / (ms / 1e3 * hw["peak_bf16_flops"]),
+            "peak_bf16_flops": hw["peak_bf16_flops"],
+            "max_memory_allocated": peak, "init_s": init_s,
+            "profiled_step": profiled,
+            "cpu_check": {"batch": 1, "seq": MODEL_CPU_SEQ,
+                          "loss_card": card_loss, "loss_cpu": cpu_loss,
+                          "loss_abs_err": loss_err,
+                          "logits_max_abs_err": logits_err,
+                          "cpu_s": cpu_s},
+            "card": hw["card"],
+        }
+        log(f"model {arch} ({cfg.family}, {cfg.num_layers} layers, d "
+            f"{cfg.d_model}, {cfg.num_params():,} params by the config, "
+            f"{n_weights:,} in the tree) B{MODEL_BATCH} x "
+            f"S{MODEL_SEQ} {cfg.dtype} on {hw['card']}: loss {loss:.6f} (float32 "
+            f"{loss32:.6f}, bf16 with full float32 sums {loss_full_sums:.6f})"
+            f"; median {ms:.2f} ms a step over {MODEL_STEPS} "
+            f"({', '.join(f'{t:.2f}' for t in times)}); "
+            f"{row['tokens_per_s']:.0f} tokens/s; {flops:.4g} model FLOPs; "
+            f"mfu {row['mfu']:.4f}; max_memory_allocated {peak / 2**30:.2f} "
+            f"GiB; float32 B1 x S{MODEL_CPU_SEQ} against the CPU: loss "
+            f"{loss_err:.3g} (tol {MODEL_CPU_LOSS_TOL}), logits "
+            f"{logits_err:.3g} (tol {MODEL_CPU_LOGITS_TOL})")
+        log(f"  {arch} profiled step: wall {profiled['wall_ms']:.2f} ms, "
+            f"device busy {profiled['device_busy_ms']:.2f} ms (idle share "
+            f"{profiled['idle_share']:.4f}), {profiled['kernels']} kernels;"
+            f" device ms by op: " + ", ".join(
+                f"{k} {v:.2f}" for k, v in
+                profiled["device_ms_by_op"].items()))
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
 def main() -> int:
     hw = phase_device()
     sass = phase_build()
     kernels = [phase_matmul(hw), phase_histogram(hw), phase_flash(hw),
                phase_rmsnorm(hw), phase_ssd(hw)]
+    models = phase_models(hw)
     host = phase_host_path()
     launches, by_variant, model_free = phase_main_path()
     idle = phase_idle_share()
@@ -1652,6 +1880,7 @@ def main() -> int:
     print(json.dumps({"tune": tune}), flush=True)
     print(json.dumps({"host_path_us": host, "main_path_idle": idle,
                       "main_path_model_free": model_free}), flush=True)
+    print(json.dumps({"models": models}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

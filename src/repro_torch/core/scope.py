@@ -46,6 +46,7 @@ BUILTIN_SCOPES = [
     "repro_torch.scopes.histo_scope",
     "repro_torch.scopes.linalg_scope",
     "repro_torch.scopes.io_scope",
+    "repro_torch.scopes.model_scope",
 ]
 
 

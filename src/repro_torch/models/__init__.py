@@ -1,11 +1,14 @@
-"""repro_torch.models — the PyTorch port of ``repro.models``.
+"""repro_torch.models — the PyTorch port of ``repro.models``, the model zoo.
 
-So far only the subset of :mod:`.layers` that the nn scope reaches:
-RMSNorm, GQA attention (the naive oracle and the chunked flash
-formulation with its recompute backward), capacity-based MoE dispatch
-and the Mamba2 SSD scans.  The model zoo (configs, transformer, ssm,
-api) is later work.
+The forward path of the ten assigned archs (dense, MoE and VLM
+transformers, the Mamba2 stack, the jamba hybrid and the whisper
+encoder-decoder) behind :func:`build`'s :class:`ModelApi`, with the
+configs (:func:`get_config`, :func:`list_archs`) and the layers they
+share.  The decode path and training come later.
 """
 from . import layers
+from .api import ModelApi, build, family_module
+from .config import ModelConfig, get_config, list_archs, register_arch
 
-__all__ = ["layers"]
+__all__ = ["ModelApi", "ModelConfig", "build", "family_module",
+           "get_config", "layers", "list_archs", "register_arch"]

@@ -1,15 +1,24 @@
 """Neural building blocks — the PyTorch port of ``repro.models.layers``.
 
-Only the subset the nn scope reaches: :func:`rms_norm`, GQA attention
+The forward path of the model zoo: norms (:func:`rms_norm`,
+:func:`layer_norm`), rotary embeddings with M-RoPE, GQA attention
 (:func:`naive_attention`, the oracle, and :func:`flash_attention_xla`,
-the chunked online-softmax formulation with a recompute backward),
-capacity-based MoE dispatch (:func:`init_moe`, :func:`moe_scatter`) and
-the Mamba2 SSD scans (:func:`ssd_reference`, :func:`ssd_chunked`).
+the chunked online-softmax formulation with a recompute backward), the
+SwiGLU/GELU MLP, capacity-based MoE (scatter dispatch and the one-hot
+einsum oracle, with shared experts), the Mamba2 block on the SSD scans
+(:func:`ssd_reference`, :func:`ssd_chunked`), and the embedding, the
+unembedding and the (chunked) cross-entropy.  The decode path
+(``decode_attention``, ``mamba2_decode_step``) and the expert-parallel
+``moe_shard_map`` are not ported yet.
 
 Conventions are the reference's: parameters are plain dicts of float32
 tensors made by the matching ``init_*`` functions (from an explicit
-``torch.Generator``), activations ``[B, S, ...]``, attention heads
-``[B, S, H, D]`` with ``K`` kv heads (``H % K == 0``).  The reference's
+``torch.Generator``, on its device unless ``device`` is given; the
+``meta`` device gives the tree's shapes without data), activations
+``[B, S, ...]``, attention heads ``[B, S, H, D]`` with ``K`` kv heads
+(``H % K == 0``).  Weights are cast to the activations' dtype at each
+product (``x @ w.to(x.dtype)``), so a bfloat16 forward rounds every
+product to bfloat16 where the reference does.  The reference's
 ``constrain`` sharding annotations are left out: the port has no mesh
 yet.  JAX's ``lax.scan`` loops become Python loops; products that the
 reference takes with ``preferred_element_type=float32`` are taken on
@@ -33,19 +42,34 @@ _NEG_INF = float("-inf")
 # ---------------------------------------------------------------------------
 
 
-def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None
-               ) -> torch.Tensor:
-    """Normal float32 weights on the generator's device, scaled by
-    ``1/sqrt(fan_in)`` unless ``scale`` is given."""
+def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None,
+               device=None) -> torch.Tensor:
+    """Normal float32 weights, scaled by ``1/sqrt(fan_in)`` unless
+    ``scale`` is given, on ``device`` (default: the generator's)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     return torch.randn(shape, generator=gen, dtype=torch.float32,
-                       device=gen.device) * scale
+                       device=init_device(gen, device)) * scale
+
+
+def embed_init(gen: torch.Generator, shape, device=None) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=init_device(gen, device)) * 0.02
+
+
+def init_device(gen: torch.Generator, device) -> torch.device:
+    """Where ``init_*`` puts its tensors: ``device``, else the
+    generator's."""
+    return gen.device if device is None else torch.device(device)
 
 
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
+
+
+def init_rmsnorm(d: int, device) -> Params:
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
 
 
 def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -57,9 +81,109 @@ def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def pick_chunk(S: int, target: int = 512) -> int:
+    """Largest divisor of S that is ≤ target (flash chunking for odd S)."""
+    best = 1
+    for c in range(1, min(S, target) + 1):
+        if S % c == 0:
+            best = c
+    return best
+
+
+def init_layernorm(d: int, device) -> Params:
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm in float32 with the population variance (``jnp.var``),
+    cast back to ``x.dtype``."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * p["scale"] + p["bias"]
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embedding (standard + M-RoPE)
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(hd: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections: Tuple[int, ...] = (),
+               enabled: bool = True) -> torch.Tensor:
+    """Rotate ``x [B,S,H,D]`` by position (the identity when not
+    ``enabled``).
+
+    ``positions``: ``[B,S]`` for standard RoPE, or ``[3,B,S]`` for M-RoPE
+    (qwen2-vl): the D/2 frequency channels are split into
+    ``mrope_sections`` groups (t, h, w), each rotated by its own position
+    stream.  Text tokens carry identical t/h/w positions, which makes
+    M-RoPE collapse to standard RoPE.
+    """
+    if not enabled:
+        return x
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                 # [D/2]
+    pos = positions.float()
+    if mrope_sections:
+        if pos.ndim != 3 or sum(mrope_sections) != hd // 2:
+            raise ValueError(f"M-RoPE needs [3,B,S] positions and sections "
+                             f"summing to {hd // 2}: {tuple(pos.shape)}, "
+                             f"{mrope_sections}")
+        # per frequency channel, the position stream that drives it
+        sec_id = torch.repeat_interleave(
+            torch.arange(len(mrope_sections), device=x.device),
+            torch.tensor(mrope_sections, device=x.device))
+        # angle[b,s,c] = pos[sec_id[c],b,s] * freqs[c]
+        angle = pos[sec_id].permute(1, 2, 0) * freqs
+    else:
+        angle = pos[..., None] * freqs                      # [B,S,D/2]
+    cos = torch.cos(angle)[:, :, None, :]                   # [B,S,1,D/2]
+    sin = torch.sin(angle)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
+
+
+def init_attention(gen: torch.Generator, d: int, H: int, K: int, hd: int,
+                   qk_norm: bool = False, device=None) -> Params:
+    device = init_device(gen, device)
+    p: Params = {
+        "wq": dense_init(gen, (d, H * hd), device=device),
+        "wk": dense_init(gen, (d, K * hd), device=device),
+        "wv": dense_init(gen, (d, K * hd), device=device),
+        "wo": dense_init(gen, (H * hd, d), device=device),
+    }
+    if qk_norm:
+        p["q_norm"] = init_rmsnorm(hd, device)
+        p["k_norm"] = init_rmsnorm(hd, device)
+    return p
+
+
+def _qkv(p: Params, x: torch.Tensor, H: int, K: int, hd: int,
+         qk_norm: bool, eps: float
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    B, S, _ = x.shape
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, hd)
+    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, K, hd)
+    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, K, hd)
+    if qk_norm:
+        q = rms_norm(p["q_norm"], q, eps)
+        k = rms_norm(p["k_norm"], k, eps)
+    return q, k, v
 
 
 def repeat_kv(k: torch.Tensor, H: int) -> torch.Tensor:
@@ -286,26 +410,72 @@ def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _FlashAttention.apply(q, k, v, causal, cq, ck, causal_skip)
 
 
+def attention_block(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
+                    cfg, causal: bool = True) -> torch.Tensor:
+    """Full self-attention sublayer (projections + rope + attention)."""
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    q, k, v = _qkv(p, x, H, K, hd, cfg.qk_norm, cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections,
+                   cfg.use_rope)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections,
+                   cfg.use_rope)
+    if cfg.attn_impl == "naive":
+        o = naive_attention(q, k, v, causal=causal)
+    else:
+        o = flash_attention_xla(q, k, v, causal=causal,
+                                chunk_q=cfg.attn_chunk_q,
+                                chunk_k=cfg.attn_chunk_k,
+                                causal_skip=cfg.causal_skip)
+    B, S = x.shape[:2]
+    return o.reshape(B, S, H * hd) @ p["wo"].to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
-# Mixture of Experts (capacity-based scatter dispatch)
+# MLP (SwiGLU / GeLU)
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(gen: torch.Generator, d: int, ff: int, act: str = "silu",
+             device=None) -> Params:
+    device = init_device(gen, device)
+    p = {"w_up": dense_init(gen, (d, ff), device=device),
+         "w_down": dense_init(gen, (ff, d), device=device)}
+    if act == "silu":
+        p["w_gate"] = dense_init(gen, (d, ff), device=device)
+    return p
+
+
+def mlp(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """SwiGLU (``act="silu"``) or a plain GELU MLP; GELU is the tanh
+    form, ``jax.nn.gelu``'s default."""
+    up = x @ p["w_up"].to(x.dtype)
+    if act == "silu":
+        h = F.silu(x @ p["w_gate"].to(x.dtype)) * up
+    else:
+        h = F.gelu(up, approximate="tanh")
+    return h @ p["w_down"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (capacity-based scatter dispatch; einsum reference)
 # ---------------------------------------------------------------------------
 
 
 def init_moe(gen: torch.Generator, d: int, E: int, ff: int, n_shared: int,
-             act: str = "silu") -> Params:
+             act: str = "silu", device=None) -> Params:
     """Router ``[d,E]`` and expert weights ``w_up``/``w_gate`` ``[E,d,ff]``,
-    ``w_down`` ``[E,ff,d]`` (the reference's keys).  Shared experts
-    (``n_shared > 0``) are not ported yet."""
-    if n_shared:
-        raise NotImplementedError("init_moe: shared experts (n_shared > 0) "
-                                  "are not ported yet")
+    ``w_down`` ``[E,ff,d]`` (the reference's keys); ``n_shared`` shared
+    experts are one MLP of width ``ff * n_shared`` under ``shared``."""
+    device = init_device(gen, device)
     p: Params = {
-        "router": dense_init(gen, (d, E), scale=0.02),
-        "w_up": dense_init(gen, (E, d, ff)),
-        "w_down": dense_init(gen, (E, ff, d)),
+        "router": dense_init(gen, (d, E), scale=0.02, device=device),
+        "w_up": dense_init(gen, (E, d, ff), device=device),
+        "w_down": dense_init(gen, (E, ff, d), device=device),
     }
     if act == "silu":
-        p["w_gate"] = dense_init(gen, (E, d, ff))
+        p["w_gate"] = dense_init(gen, (E, d, ff), device=device)
+    if n_shared:
+        p["shared"] = init_mlp(gen, d, ff * n_shared, act, device=device)
     return p
 
 
@@ -340,9 +510,6 @@ def moe_scatter(p: Params, x: torch.Tensor, *, top_k: int,
     (decode).  Assignments beyond an expert's capacity are dropped,
     first come first served.  Returns (y [B,S,d], aux_loss).
     """
-    if n_shared:
-        raise NotImplementedError("moe_scatter: shared experts (n_shared "
-                                  "> 0) are not ported yet")
     B, S, d = x.shape
     E = p["w_up"].shape[0]
     xg = x.reshape(1, B, d) if S == 1 else x                # [G, T, d]
@@ -364,24 +531,122 @@ def moe_scatter(p: Params, x: torch.Tensor, *, top_k: int,
     buf = torch.zeros((G, E, C, d), dtype=x.dtype, device=x.device)
     buf.index_put_((gidx, flat_e, pos_c), x_rep, accumulate=True)
 
-    # expert FFN: [G,E,C,d] x [E,d,f]
-    up = torch.einsum("gecd,edf->gecf", buf, p["w_up"].to(x.dtype))
-    if act == "silu":
-        gt = torch.einsum("gecd,edf->gecf", buf, p["w_gate"].to(x.dtype))
-        h = F.silu(gt) * up
-    else:
-        h = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default
-    out_buf = torch.einsum("gecf,efd->gecd", h, p["w_down"].to(x.dtype))
+    out_buf = _expert_ffn(p, buf, act)
 
     y_tok = out_buf[gidx, flat_e, pos_c]                    # gather back
     y_tok = y_tok * (gate_flat * keep)[..., None].to(x.dtype)
     y = y_tok.reshape(G, T, top_k, d).sum(dim=2)            # combine
-    return y.reshape(B, S, d), aux
+    y = y.reshape(B, S, d)
+    if n_shared:
+        y = y + mlp(p["shared"], x, act)
+    return y, aux
+
+
+def _expert_ffn(p: Params, buf: torch.Tensor, act: str) -> torch.Tensor:
+    """Every expert's FFN on its buffer: [G,E,C,d] x [E,d,f] → [G,E,C,d]."""
+    up = torch.einsum("gecd,edf->gecf", buf, p["w_up"].to(buf.dtype))
+    if act == "silu":
+        gt = torch.einsum("gecd,edf->gecf", buf, p["w_gate"].to(buf.dtype))
+        h = F.silu(gt) * up
+    else:
+        h = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default
+    return torch.einsum("gecf,efd->gecd", h, p["w_down"].to(buf.dtype))
+
+
+def moe_einsum(p: Params, x: torch.Tensor, *, top_k: int,
+               capacity_factor: float, act: str = "silu",
+               n_shared: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reference MoE: dense one-hot dispatch/combine einsums (Mesh-TF
+    style), the oracle the scatter path is held to.
+
+    O(T·E·C) memory.  The combine weights are float32 (the gates), so,
+    as in the reference, a bfloat16 ``x`` gives a float32 ``y``.
+    """
+    B, S, d = x.shape
+    E = p["w_up"].shape[0]
+    xg = x.reshape(1, B, d) if S == 1 else x
+    G, T, _ = xg.shape
+    C = moe_capacity(T, E, top_k, capacity_factor)
+
+    gates, idx, aux = _router(p, xg, top_k)
+    # dispatch[g,t,e,c] — position via per-expert cumsum over (t,k) order
+    flat_e = idx.reshape(G, T * top_k)
+    onehot = F.one_hot(flat_e, E)
+    pos = ((onehot.cumsum(dim=1) - 1) * onehot).sum(dim=-1)
+    keep = pos < C
+    disp = (F.one_hot(flat_e, E).to(xg.dtype)[..., None]
+            * F.one_hot(torch.where(keep, pos, C), C + 1).to(
+                xg.dtype)[..., None, :-1])                  # [G,Tk,E,C]
+    comb = disp * gates.reshape(G, T * top_k)[..., None, None]
+    disp = disp.reshape(G, T, top_k, E, C).sum(dim=2)
+    comb = comb.reshape(G, T, top_k, E, C).sum(dim=2)
+
+    buf = torch.einsum("gtec,gtd->gecd", disp, xg)
+    out_buf = _expert_ffn(p, buf, act)
+    y = torch.einsum("gtec,gecd->gtd", comb,
+                     out_buf.to(comb.dtype)).reshape(B, S, d)
+    if n_shared:
+        y = y + mlp(p["shared"], x, act)
+    return y, aux
+
+
+def moe_layer(p: Params, x: torch.Tensor, cfg
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The config's MoE dispatch (``moe_dispatch``: scatter or einsum).
+    The reference's expert-parallel ``moe_shard_map`` needs a mesh,
+    which the port does not have yet."""
+    fn = moe_scatter if cfg.moe_dispatch == "scatter" else moe_einsum
+    return fn(p, x, top_k=cfg.moe_top_k,
+              capacity_factor=cfg.moe_capacity_factor, act=cfg.act,
+              n_shared=cfg.moe_num_shared)
 
 
 # ---------------------------------------------------------------------------
 # Mamba2 SSD (state-space duality)
 # ---------------------------------------------------------------------------
+
+
+def init_mamba2(gen: torch.Generator, cfg, device=None) -> Params:
+    """Mamba2 weights with the reference's *split* projections (z, x, B,
+    C, dt) and convolutions (x, B, C)."""
+    device = init_device(gen, device)
+    d, di = cfg.d_model, cfg.ssm_d_inner
+    H, N, G = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_groups
+
+    def w(shape, scale=None):
+        return dense_init(gen, shape, scale, device=device)
+    return {
+        "w_z": w((d, di)),
+        "w_x": w((d, di)),
+        "w_B": w((d, G * N)),
+        "w_C": w((d, G * N)),
+        "w_dt": w((d, H)),
+        "conv_x": w((cfg.ssm_conv, di), 0.5),
+        "conv_B": w((cfg.ssm_conv, G * N), 0.5),
+        "conv_C": w((cfg.ssm_conv, G * N), 0.5),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H, dtype=torch.float32,
+                                          device=device)),
+        "D": torch.ones((H,), dtype=torch.float32, device=device),
+        "dt_bias": torch.zeros((H,), dtype=torch.float32, device=device),
+        "norm": init_rmsnorm(di, device),
+        "out_proj": w((di, d)),
+    }
+
+
+def causal_conv1d(w: torch.Tensor, x: torch.Tensor,
+                  tail: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv via shift-and-sum, then SiLU.  w [k, C];
+    x [B, S, C]; ``tail``: [B, k-1, C] carry-in from earlier tokens
+    (zeros when None).  Sums in float32; the result has x's dtype."""
+    k = w.shape[0]
+    if tail is None:
+        tail = x.new_zeros((x.shape[0], k - 1, x.shape[2]))
+    xp = torch.cat([tail, x], dim=1)                # [B, S+k-1, C]
+    S = x.shape[1]
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(k):
+        out = out + xp[:, i:i + S].float() * w[i]
+    return F.silu(out).to(x.dtype)
 
 
 def _initial_state(init_state, b, h, p, n, device) -> torch.Tensor:
@@ -470,3 +735,111 @@ def ssd_chunked(x, dt, A, B, C, D, *, chunk: int = 128, init_state=None):
     y = (y_intra + y_inter).reshape(b, l, h, p)
     y = y + x.float() * D[None, None, :, None]
     return y.to(x.dtype), hs
+
+
+def mamba2_block(p: Params, x: torch.Tensor, cfg, *, ssm_state=None,
+                 conv_tail=None, return_state: bool = False):
+    """Full Mamba2 sublayer.  x [B,S,d] → y [B,S,d]; with
+    ``return_state`` also the SSD's final state [B,H,P,N] and the conv
+    tails {x,B,C} of [B, k-1, ·] (the inputs' last k-1 tokens before the
+    conv).  ``conv_tail``: dict {x,B,C} of carry-ins (or None)."""
+    B_, S, d = x.shape
+    di, H = cfg.ssm_d_inner, cfg.ssm_heads
+    N, G, P = cfg.ssm_state, cfg.ssm_groups, cfg.ssm_head_dim
+    z = x @ p["w_z"].to(x.dtype)
+    xin = x @ p["w_x"].to(x.dtype)
+    Bc = x @ p["w_B"].to(x.dtype)
+    Cc = x @ p["w_C"].to(x.dtype)
+    dt_raw = x @ p["w_dt"].to(x.dtype)
+    km1 = cfg.ssm_conv - 1
+    new_tail = ({"x": xin[:, -km1:], "B": Bc[:, -km1:], "C": Cc[:, -km1:]}
+                if return_state else None)
+    tails = conv_tail or {"x": None, "B": None, "C": None}
+    xin = causal_conv1d(p["conv_x"], xin, tail=tails["x"])
+    Bc = causal_conv1d(p["conv_B"], Bc, tail=tails["B"])
+    Cc = causal_conv1d(p["conv_C"], Cc, tail=tails["C"])
+
+    xh = xin.reshape(B_, S, H, P)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    Bm = Bc.reshape(B_, S, G, N)
+    Cm = Cc.reshape(B_, S, G, N)
+    y, final_state = ssd_chunked(xh, dt, A, Bm, Cm, p["D"],
+                                 chunk=cfg.ssm_chunk, init_state=ssm_state)
+    y = y.reshape(B_, S, di)
+    y = rms_norm(p["norm"], y * F.silu(z), cfg.norm_eps)
+    out = y @ p["out_proj"].to(x.dtype)
+    if return_state:
+        return out, final_state, new_tail
+    return out
+
+
+# ---------------------------------------------------------------------------
+# embedding / unembedding / loss
+# ---------------------------------------------------------------------------
+
+
+def init_embed(gen: torch.Generator, V: int, d: int, device=None) -> Params:
+    return {"table": embed_init(gen, (V, d), device=device)}
+
+
+def embed(p: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """Rows of the table (tokens must lie in ``[0, V)``: the reference's
+    ``jnp.take`` would clamp, torch raises), cast to ``dtype``."""
+    return F.embedding(tokens, p["table"]).to(dtype)
+
+
+def unembed(table: torch.Tensor, x: torch.Tensor, dtype) -> torch.Tensor:
+    """Logits in x's dtype (a bfloat16 forward rounds them to bfloat16),
+    then cast to ``dtype``."""
+    return (x @ table.t().to(x.dtype)).to(dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token NLL.  logits [B,S,V] (any float dtype), labels [B,S]."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+def chunked_loss(table: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
+                 chunk: int, logits_dtype) -> torch.Tensor:
+    """Cross-entropy without materializing [B,S,V]: a loop over S chunks
+    (``chunk`` ≤ 0 or ≥ S: one pass)."""
+    B, S, d = x.shape
+    if chunk <= 0 or S <= chunk:
+        return cross_entropy(unembed(table, x, logits_dtype), labels)
+    if S % chunk:
+        raise ValueError(f"chunked_loss: chunk {chunk} does not divide the "
+                         f"sequence length {S}")
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(S // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        lf = unembed(table, x[:, sl], logits_dtype).float()
+        gold = lf.gather(-1, labels[:, sl].long()[..., None])[..., 0]
+        tot = tot + (torch.logsumexp(lf, dim=-1) - gold).sum()
+    return tot / (B * S)
+
+
+def next_token_labels(batch: Dict[str, Any]) -> torch.Tensor:
+    """``batch["labels"]``, else the tokens shifted left by one with the
+    last token repeated (the reference's default)."""
+    labels = batch.get("labels")
+    if labels is None:
+        tokens = batch["tokens"]
+        labels = torch.cat([tokens[:, 1:], tokens[:, -1:]], dim=1)
+    return labels
+
+
+def dtype_of(name: str) -> torch.dtype:
+    """A config's dtype name (``"bfloat16"``, ``"float32"``) as a torch
+    dtype."""
+    dtype = getattr(torch, name, None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"not a torch dtype: {name!r}")
+    return dtype

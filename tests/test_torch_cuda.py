@@ -777,3 +777,33 @@ def test_fingerprint_reads_the_cards_artifact(cuda, tmp_path, monkeypatch):
     finally:
         monkeypatch.delenv(tuning.DIR_ENV)
         tuning.invalidate_cache()
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-780m"])
+def test_reduced_model_on_the_card_matches_the_cpu(cuda, arch):
+    """A reduced float32 model on the card against the port's CPU run on
+    the same weights and tokens: the loss within 1e-4, the logits within
+    5e-3 (chip_smoke.py's full-width tolerances)."""
+    from repro_torch.models import build, get_config
+    if torch.backends.cuda.matmul.allow_tf32:
+        pytest.fail("float32 products must not run in TF32 here")
+    cfg = get_config(arch).reduced().override(dtype="float32")
+    api = build(cfg)
+    params = api.init(torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        card_logits = api.logits(params, {"tokens": tokens.to(cuda)})[0]
+        card_loss = api.loss(params, {"tokens": tokens.to(cuda)})[0]
+        cpu_params = _to(params, "cpu")
+        cpu_logits = api.logits(cpu_params, {"tokens": tokens})[0]
+        cpu_loss = api.loss(cpu_params, {"tokens": tokens})[0]
+    assert card_logits.device.type == "cuda"
+    assert abs(float(card_loss) - float(cpu_loss)) <= 1e-4
+    assert (card_logits.cpu() - cpu_logits).abs().max().item() <= 5e-3

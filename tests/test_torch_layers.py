@@ -165,8 +165,11 @@ def test_init_moe_shapes_and_seed():
     again = TL.init_moe(torch.Generator().manual_seed(0), 32, 8, 64, 0)
     assert all(torch.equal(p[n], again[n]) for n in p)
     assert abs(p["w_up"].std().item() - 1 / np.sqrt(32)) < 0.01
-    with pytest.raises(NotImplementedError):
-        TL.init_moe(torch.Generator().manual_seed(0), 32, 8, 64, 1)
+    # shared experts: one MLP of width ff * n_shared, the reference's tree
+    shared = TL.init_moe(torch.Generator().manual_seed(0), 32, 8, 64, 2)
+    ref_shared = RL.init_moe(jax.random.PRNGKey(0), 32, 8, 64, 2)
+    assert {n: tuple(w.shape) for n, w in shared["shared"].items()} == \
+        {n: tuple(w.shape) for n, w in ref_shared["shared"].items()}
 
 
 def _ssd_inputs(rng, b, l, h, p, n):

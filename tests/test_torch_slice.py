@@ -86,7 +86,8 @@ def test_slice_run_on_cpu_pairs_with_reference(tmp_path):
     assert ctx["scopes"] == {"example": "disabled", "mxu": "enabled",
                              "histo": "enabled", "nn": "disabled",
                              "linalg": "disabled", "instr": "disabled",
-                             "comm": "disabled", "io": "disabled"}
+                             "comm": "disabled", "io": "disabled",
+                             "model": "disabled"}
 
 
 def _families(mgr_cls, registry, flags, hooks, name):
