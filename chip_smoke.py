@@ -76,9 +76,9 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      ``tuning_resolve``) timed alone over ``HOST_CALLS`` calls on the
      host clock;
  10. the main path: ``repro_torch.core.main.main(["run", ...])`` over
-     all nine scopes of the port (example, mxu, comm, nn, instr, histo,
-     linalg, io, model; one process, nothing persisted: ``--results-dir
-     ''``),
+     all ten scopes of the port (example, mxu, comm, nn, instr, histo,
+     linalg, io, model, serve; one process, nothing persisted:
+     ``--results-dir ''``),
      with the kernels' launch counts set to 0 just before and read just
      after.  Every scope must load and be enabled, every instance must
      have a record without error and with ``compile_time_s``, all five
@@ -96,7 +96,9 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      ``gelu`` op is held once to the tanh formula on the card; the
      model scope's five ``loss_step_reduced`` rows must have records, and
      ``dryrun_rooflines`` may skip only with the reference's message,
-     when ``results/dryrun/`` holds no cell;
+     when ``results/dryrun/`` holds no cell; the serve scope's six
+     ``under_load`` rows replay their open-loop traces through the
+     engine on the card;
  11. the same main path again in a child process under
      ``torch.profiler``: the device's idle share over its activity
      window;
@@ -136,8 +138,34 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      mxu`` lists the mxu records; ``store status --coverage`` counts
      every instance of the two scopes fresh.  One ``{"incremental":
      ...}`` line holds the counts, the exit codes and the run walls;
- 15. a ``{"host_path_us": ..., "main_path_idle": ...}`` line, a
-     ``{"models": [...]}`` line (phase 8's rows), then one
+ 15. serve: llama3.2-1b at its published width and depth through the
+     port's engine (``repro_torch.serve.ServeEngine``; weights from its
+     ``init``, seeded), bf16 with a bf16 cache of 8 slots x 4096
+     positions (1 GiB), prompt buckets 128, 512 and 2048.  Checks, each
+     failing the script: (a) in float32 with a float32 cache (512
+     positions, 2 slots) three requests of mixed length x 16 tokens give
+     the same greedy tokens through the engine as each alone through
+     prefill and uniform ``decode_step``; (b) the float32 prefill and
+     first decode step match the float32 teacher-forced logits within
+     ``MODEL_CPU_LOGITS_TOL``; (c) logged only: the bf16 engine path's
+     first decode logits against the bf16 teacher-forced ones, beside
+     the reference test's atol 5e-2, rtol 1e-2.  Then prefill ms per
+     bucket; 32 open-loop Poisson arrivals at 4/s (the port's
+     ``arrivals``, seed 0), prompts of 64–2000 tokens, 128 tokens each:
+     TTFT and latency p50/p99, output tokens/s, queue depth; a closed
+     batch of 8 requests submitted at once: the decode step's median ms
+     with every slot live against its bound (bf16 weight bytes plus one
+     full cache read over the card's memory rate), one profiled step's
+     idle share and top aten ops, the cache's bytes and
+     ``max_memory_allocated``.  No hand-written kernel lies on this path
+     (the reference's serving path calls no Pallas kernel);
+ 16. the serve scope in a child process: ``python -m repro_torch run
+     --enable-scope serve --meters wall,cpu,latency --slo-ms 200``; every
+     record must carry ``latency_p99_s``, ``ttft_p99_s``,
+     ``queue_depth_mean`` and ``slo_attainment``;
+ 17. a ``{"host_path_us": ..., "main_path_idle": ...}`` line, a
+     ``{"models": [...]}`` line (phase 8's rows), a ``{"serve": ...}``
+     line (phases 15 and 16), then one
      ``{"kernels": [...]}`` line: per kernel its launches on the main
      path (with each variant's, for matmul, flash attention and SSD), its
      largest error against the plain version, and its time,
@@ -146,7 +174,7 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      instantiated tile under ``tiles``).
      ``ms`` is the time per call of back-to-back calls through the
      wrapper (CUDA events), ``device_ms`` the kernels alone (profiler);
- 16. last line: ``{"ok": true, "device": {...}}``.
+ 18. last line: ``{"ok": true, "device": {...}}``.
 
 Every comparison holds the kernel to its plain version on the same
 inputs with ``atol = rtol = tol``, ``tol`` being the reference's own
@@ -913,7 +941,7 @@ def expected_instances() -> list:
 
 
 MAIN_SCOPES = ["example", "mxu", "comm", "nn", "instr", "histo", "linalg",
-               "io", "model"]
+               "io", "model", "serve"]
 
 
 #: The model scope's default ``model/dryrun_dir``, relative to the run's
@@ -1128,7 +1156,7 @@ def phase_main_path() -> dict:
         f"{k} {v:.2f}" for k, v in per_scope.walls.items()))
     for name, r in records.items():
         if name.startswith(("mxu/", "histo/", "nn/", "linalg/", "instr/",
-                            "comm/all_reduce", "io/", "model/")):
+                            "comm/all_reduce", "io/", "model/", "serve/")):
             log(f"  {name}: {r['real_time']:.3f} {r['time_unit']} "
                 f"(compile {r['compile_time_s']:.3f} s)")
     return launches, by_variant, model_free
@@ -1858,6 +1886,296 @@ def _to_cpu(tree):
     return tree.cpu()
 
 
+#: The serve phase: llama3.2-1b as ``get_config`` gives it (16 layers,
+#: d_model 2048, 32 heads, 8 KV heads, head_dim 64, d_ff 8192, vocab
+#: 128,256, tied embeddings), served by the port's engine in bfloat16
+#: with a bfloat16 cache of ``SERVE_CONFIG``'s slots and positions.
+SERVE_ARCH = "llama3.2-1b"
+SERVE_CONFIG = dict(max_batch=8, max_len=4096, prompt_buckets=(128, 512, 2048))
+#: Open-loop traffic, all from ``SERVE_SEED``: ``SERVE_REQUESTS`` Poisson
+#: arrivals at ``SERVE_RATE`` req/s (the port's ``arrivals.generate``),
+#: prompt lengths uniform in ``SERVE_PROMPT_LENS``, ``SERVE_MAX_TOKENS``
+#: tokens each; then a closed batch of ``max_batch`` requests of
+#: ``SERVE_CLOSED_PROMPT`` tokens submitted at once, to time the decode
+#: step with every slot live.
+SERVE_SEED = 0
+SERVE_REQUESTS, SERVE_RATE, SERVE_MAX_TOKENS = 32, 4.0, 128
+SERVE_PROMPT_LENS = (64, 2000)
+SERVE_CLOSED_PROMPT = 500
+#: Check (a), float32 with a float32 cache: three requests of these
+#: prompt lengths, ``SERVE_CHECK_TOKENS`` tokens each, through an engine
+#: of ``SERVE_CHECK_CONFIG`` against per-request prefill plus uniform
+#: ``decode_step``: the same greedy tokens.  Check (b): the float32
+#: prefill and first decode step against the float32 teacher-forced
+#: logits within ``MODEL_CPU_LOGITS_TOL``.  (c), logged only: the bf16
+#: engine path's first decode logits against the bf16 teacher-forced
+#: ones, beside the reference test's atol and rtol ``SERVE_BF16_TOL``.
+SERVE_CHECK_CONFIG = dict(max_batch=2, max_len=512, prompt_buckets=(128, 512))
+SERVE_CHECK_PROMPTS, SERVE_CHECK_TOKENS = (37, 300, 90), 16
+SERVE_BF16_TOL = (5e-2, 1e-2)
+
+
+def greedy_tokens(api, params, prompt, n_tokens, max_len, cache_dtype):
+    """One request alone: prefill, then uniform ``decode_step``s."""
+    toks = torch.as_tensor(prompt, dtype=torch.int32, device="cuda")[None]
+    with torch.inference_mode():
+        cache = api.init_cache(1, max_len, cache_dtype, device="cuda")
+        logits, cache = api.prefill(params, {"tokens": toks}, cache)
+        out = [int(logits[0, -1].argmax())]
+        for _ in range(n_tokens - 1):
+            logits, cache = api.decode_step(
+                params, torch.tensor([[out[-1]]], dtype=torch.int32,
+                                     device="cuda"), cache)
+            out.append(int(logits[0, 0].argmax()))
+    return out
+
+
+def serve_checks(api, api32, params, gen) -> dict:
+    """Checks (a) and (b) (each raises) and (c) (logged) of the serve
+    phase, on the full-width weights."""
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeConfig, ServeEngine
+    V = api.cfg.vocab_size
+    prompts = [torch.randint(1, V, (n,), generator=gen).numpy()
+               for n in SERVE_CHECK_PROMPTS]
+    max_len = SERVE_CHECK_CONFIG["max_len"]
+    refs = [greedy_tokens(api32, params, p, SERVE_CHECK_TOKENS, max_len,
+                          torch.float32) for p in prompts]
+    eng = ServeEngine(api32, params, ServeConfig(
+        **SERVE_CHECK_CONFIG, cache_dtype=torch.float32))
+    reqs = [eng.submit(p, max_tokens=SERVE_CHECK_TOKENS) for p in prompts]
+    eng.run()
+    got = [r.output for r in reqs]
+    if got != refs:
+        raise AssertionError(f"serve (a): float32 engine tokens {got} "
+                             f"against per-request generation {refs}")
+    # (b) and (c): a prompt and its next token, teacher-forced
+    n = SERVE_CHECK_PROMPTS[1]
+    seq = torch.as_tensor(prompts[1].tolist() + [refs[1][0]],
+                          dtype=torch.int32, device="cuda")[None]
+    errs = {}
+    with torch.inference_mode():
+        full32 = api32.logits(params, {"tokens": seq})[0]
+        cache = api32.init_cache(1, max_len, torch.float32, device="cuda")
+        lp, cache = api32.prefill(params, {"tokens": seq[:, :n]}, cache)
+        ld, cache = api32.decode_step(params, seq[:, n:], cache)
+        errs["prefill"] = (lp[:, 0] - full32[:, n - 1]).abs().max().item()
+        errs["decode"] = (ld[:, 0] - full32[:, n]).abs().max().item()
+        del full32
+        # (c) the engine's own bf16 path: a bucket-padded one-row
+        # prefill, then one ragged decode step at the row's clock
+        full16 = api.logits(params, {"tokens": seq})[0][:, n]
+        bucket = SERVE_CONFIG["prompt_buckets"][1]
+        padded = torch.zeros((1, bucket), dtype=torch.int32, device="cuda")
+        padded[:, :n] = seq[:, :n]
+        cache = api.init_cache(1, SERVE_CONFIG["max_len"], device="cuda")
+        _, cache = api.prefill(params, {"tokens": padded}, cache,
+                               logit_pos=n - 1)
+        cache["pos"] = torch.tensor([n], dtype=torch.int32, device="cuda")
+        ld16, _ = transformer.decode_step_ragged(api.cfg, params,
+                                                 seq[:, n:], cache)
+        del cache
+    atol, rtol = SERVE_BF16_TOL
+    bf16_err = (ld16[:, 0] - full16).abs().max().item()
+    bf16_units = ((ld16[:, 0] - full16).abs()
+                  / (atol + rtol * full16.abs())).max().item()
+    if not max(errs.values()) <= MODEL_CPU_LOGITS_TOL:
+        raise AssertionError(f"serve (b): float32 prefill/decode against "
+                             f"teacher forcing {errs} (tol "
+                             f"{MODEL_CPU_LOGITS_TOL})")
+    log(f"serve checks: (a) float32 engine, {len(prompts)} requests x "
+        f"{SERVE_CHECK_TOKENS} tokens (prompts {SERVE_CHECK_PROMPTS}), the "
+        f"same greedy tokens as per-request decode_step; (b) float32 "
+        f"prefill {errs['prefill']:.3g}, first decode {errs['decode']:.3g} "
+        f"from teacher forcing (tol {MODEL_CPU_LOGITS_TOL}); (c) bf16 "
+        f"engine path's first decode logits {bf16_err:.3g} from teacher "
+        f"forcing, {bf16_units:.3g} of the reference test's atol {atol} "
+        f"rtol {rtol} (logged only)")
+    return {"a_requests": len(prompts), "a_tokens": SERVE_CHECK_TOKENS,
+            "b_prefill_max_abs_err": errs["prefill"],
+            "b_decode_max_abs_err": errs["decode"],
+            "b_tol": MODEL_CPU_LOGITS_TOL,
+            "c_bf16_decode_max_abs_err": bf16_err,
+            "c_bf16_units_of_tol": bf16_units,
+            "c_bf16_tol": {"atol": atol, "rtol": rtol}}
+
+
+def phase_serve(hw: dict) -> dict:
+    """llama3.2-1b at full width served by the port's engine on the card:
+    the float32 checks, prefill ms per bucket, open-loop TTFT and
+    latency, output tokens/s, the decode step with every slot live
+    against its bound, a profiled step and peak memory."""
+    from repro_torch.core.arrivals import generate
+    from repro_torch.core.quantile import percentile
+    from repro_torch.models import build, get_config, tree
+    from repro_torch.serve import ServeConfig, ServeEngine
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("float32 products must not run in TF32 here")
+    cfg = get_config(SERVE_ARCH)
+    api, api32 = build(cfg), build(cfg.override(dtype="float32"))
+    params = api.init(torch.Generator(device="cuda").manual_seed(SERVE_SEED))
+    n_weights = sum(t.numel() for _, t in tree.leaves(params))
+    gen = torch.Generator().manual_seed(SERVE_SEED)
+    checks = serve_checks(api, api32, params, gen)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    V, scfg = cfg.vocab_size, ServeConfig(**SERVE_CONFIG)
+
+    def prompt(n):
+        return torch.randint(1, V, (n,), generator=gen).numpy()
+    engine = ServeEngine(api, params, scfg)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for _, t in tree.leaves(engine.cache))
+    for b in scfg.prompt_buckets:                  # warm every bucket
+        engine.submit(prompt(b), max_tokens=2)
+    engine.run()
+    prefill_ms = {}
+    for b in scfg.prompt_buckets:
+        toks = torch.as_tensor(prompt(b), device="cuda")[None]
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                c = api.init_cache(1, scfg.max_len, device="cuda")
+                api.prefill(params, {"tokens": toks}, c, logit_pos=b - 1)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        prefill_ms[b] = sorted(times)[1]
+    # open loop
+    offsets = generate("poisson", SERVE_RATE, SERVE_REQUESTS, SERVE_SEED)
+    lo, hi = SERVE_PROMPT_LENS
+    lens = torch.randint(lo, hi + 1, (SERVE_REQUESTS,), generator=gen)
+    prompts = [prompt(int(n)) for n in lens]
+    engine.queue_depth_log.clear()
+    done, idx, steps = [], 0, 0
+    t0 = time.perf_counter()
+    while idx < len(prompts) or engine.queue or \
+            any(s is not None for s in engine.slots):
+        now = time.perf_counter() - t0
+        while idx < len(prompts) and offsets[idx] <= now:
+            engine.submit(prompts[idx], max_tokens=SERVE_MAX_TOKENS,
+                          submitted_at=t0 + offsets[idx])
+            idx += 1
+        if not (engine.queue or any(s is not None for s in engine.slots)):
+            time.sleep(1e-4)                   # idle until the next arrival
+            continue
+        done.extend(engine.step())
+        steps += 1
+    open_wall = time.perf_counter() - t0
+    ttft = [r.first_token_at - r.submitted_at for r in done]
+    lat = [r.done_at - r.submitted_at for r in done]
+    out_tokens = sum(len(r.output) for r in done)
+    if len(done) != SERVE_REQUESTS or any(
+            len(r.output) != SERVE_MAX_TOKENS for r in done):
+        raise AssertionError(f"serve: {len(done)} of {SERVE_REQUESTS} "
+                             f"requests finished, outputs "
+                             f"{sorted({len(r.output) for r in done})}")
+    depth = sum(engine.queue_depth_log) / len(engine.queue_depth_log)
+    # closed batch: every slot live
+    for _ in range(scfg.max_batch):
+        engine.submit(prompt(SERVE_CLOSED_PROMPT), max_tokens=SERVE_MAX_TOKENS)
+    engine.step()                              # admits all, first decode
+    step_ms, profiled = [], None
+    while all(s is not None for s in engine.slots):
+        if len(step_ms) == SERVE_MAX_TOKENS // 2 and profiled is None:
+            profiled = profile_step(engine.step)
+            continue
+        ts = time.perf_counter()
+        engine.step()
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+    decode_ms = sorted(step_ms)[len(step_ms) // 2]
+    peak = torch.cuda.max_memory_allocated()
+    bound_bytes = 2 * n_weights + cache_bytes
+    bound_ms = bound_bytes / hw["hbm_bandwidth"] * 1e3
+    del engine, params
+    torch.cuda.empty_cache()
+    row = {
+        "arch": SERVE_ARCH, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "weights_in_tree": n_weights, "dtype": cfg.dtype,
+        "cache_dtype": str(scfg.cache_dtype).replace("torch.", ""),
+        **{k: v for k, v in SERVE_CONFIG.items()},
+        "checks": checks,
+        "prefill_ms": prefill_ms,
+        "open_loop": {
+            "requests": SERVE_REQUESTS, "rate": SERVE_RATE,
+            "prompt_lens": list(SERVE_PROMPT_LENS),
+            "max_tokens": SERVE_MAX_TOKENS, "wall_s": open_wall,
+            "steps": steps, "ttft_p50_s": percentile(ttft, 0.50),
+            "ttft_p99_s": percentile(ttft, 0.99),
+            "latency_p50_s": percentile(lat, 0.50),
+            "latency_p99_s": percentile(lat, 0.99),
+            "output_tokens": out_tokens,
+            "tokens_per_s": out_tokens / (max(r.done_at for r in done) - t0),
+            "queue_depth_mean": depth},
+        "decode_step_ms": decode_ms, "decode_steps_timed": len(step_ms),
+        "decode_step_bound_ms": bound_ms,
+        "decode_step_bound_bytes": bound_bytes,
+        "closed_tokens_per_s": scfg.max_batch / (decode_ms / 1e3),
+        "cache_bytes": cache_bytes, "max_memory_allocated": peak,
+        "profiled_step": profiled, "card": hw["card"],
+    }
+    ol = row["open_loop"]
+    log(f"serve {SERVE_ARCH} ({cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{n_weights:,} weights) bf16, cache {cache_bytes:,} B bf16 "
+        f"(B{scfg.max_batch} x {scfg.max_len}) on {hw['card']}: prefill ms "
+        + ", ".join(f"{b}: {t:.2f}" for b, t in prefill_ms.items())
+        + f"; open loop {SERVE_REQUESTS} poisson at {SERVE_RATE}/s x "
+        f"{SERVE_MAX_TOKENS} tokens in {open_wall:.2f} s, {steps} steps: "
+        f"TTFT p50 {ol['ttft_p50_s'] * 1e3:.1f} ms p99 "
+        f"{ol['ttft_p99_s'] * 1e3:.1f} ms, latency p50 "
+        f"{ol['latency_p50_s']:.3f} s p99 {ol['latency_p99_s']:.3f} s, "
+        f"{ol['tokens_per_s']:.0f} output tokens/s, queue depth mean "
+        f"{depth:.2f}; decode step with {scfg.max_batch} live "
+        f"{decode_ms:.3f} ms (median of {len(step_ms)}; bound {bound_ms:.3f}"
+        f" ms: {bound_bytes:,} B of bf16 weights and one cache read); "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    log(f"  serve profiled decode step: wall {profiled['wall_ms']:.2f} ms, "
+        f"device busy {profiled['device_busy_ms']:.2f} ms (idle share "
+        f"{profiled['idle_share']:.4f}), {profiled['kernels']} kernels; "
+        f"device ms by op: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in profiled["device_ms_by_op"].items()))
+    return row
+
+
+#: The latency counters every record of the serve scope's child run
+#: must carry.
+SERVE_COUNTERS = ("latency_p99_s", "ttft_p99_s", "queue_depth_mean",
+                  "slo_attainment")
+
+
+def phase_serve_scope() -> dict:
+    """``python -m repro_torch run --enable-scope serve --meters
+    wall,cpu,latency --slo-ms 200`` in a child process on the card."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "serve.json")
+        r = checked_run("run", "--enable-scope", "serve", "--meters",
+                        "wall,cpu,latency", "--slo-ms", "200",
+                        "--results-dir", "", "--benchmark_out", out)
+        with open(out) as f:
+            doc = json.load(f)
+    if doc["context"]["backend"] != "cuda":
+        raise AssertionError(f"serve scope not on the card: "
+                             f"{doc['context']}")
+    rows = {}
+    for rec in doc["benchmarks"]:
+        missing = [k for k in SERVE_COUNTERS if k not in rec]
+        if rec.get("error_occurred") or missing:
+            raise AssertionError(f"{rec['name']}: error "
+                                 f"{rec.get('error_message')}, missing "
+                                 f"{missing}")
+        rows[rec["name"]] = {k: rec[k] for k in SERVE_COUNTERS}
+    if len(rows) != 6:
+        raise AssertionError(f"serve scope: {len(rows)} records")
+    log(f"serve scope child (--meters wall,cpu,latency --slo-ms 200): "
+        f"{len(rows)} records in {r.wall_s:.1f} s; " + "; ".join(
+            f"{n.split('/', 2)[2]} p99 {v['latency_p99_s'] * 1e3:.1f} ms "
+            f"ttft p99 {v['ttft_p99_s'] * 1e3:.1f} ms depth "
+            f"{v['queue_depth_mean']:.2f} slo {v['slo_attainment']:.2f}"
+            for n, v in rows.items()))
+    return {"wall_s": r.wall_s, "records": rows}
+
+
 def main() -> int:
     hw = phase_device()
     sass = phase_build()
@@ -1870,6 +2188,8 @@ def main() -> int:
     pipeline = phase_pipeline()
     incremental = phase_incremental()
     tune = phase_tune()
+    serve = phase_serve(hw)
+    serve["scope_child"] = phase_serve_scope()
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["sass"] = sass[k["name"]]
@@ -1881,6 +2201,7 @@ def main() -> int:
     print(json.dumps({"host_path_us": host, "main_path_idle": idle,
                       "main_path_model_free": model_free}), flush=True)
     print(json.dumps({"models": models}), flush=True)
+    print(json.dumps({"serve": serve}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

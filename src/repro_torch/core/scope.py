@@ -47,6 +47,7 @@ BUILTIN_SCOPES = [
     "repro_torch.scopes.linalg_scope",
     "repro_torch.scopes.io_scope",
     "repro_torch.scopes.model_scope",
+    "repro_torch.scopes.serve_scope",
 ]
 
 

@@ -4,7 +4,8 @@ The forward path of the ten assigned archs (dense, MoE and VLM
 transformers, the Mamba2 stack, the jamba hybrid and the whisper
 encoder-decoder) behind :func:`build`'s :class:`ModelApi`, with the
 configs (:func:`get_config`, :func:`list_archs`) and the layers they
-share.  The decode path and training come later.
+share; and each family's decode path (``init_cache``, ``prefill``,
+``decode_step``), which the serve engine drives.  Training comes later.
 """
 from . import layers
 from .api import ModelApi, build, family_module

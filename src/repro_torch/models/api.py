@@ -5,8 +5,13 @@ The PyTorch port of ``repro.models.api``.  ``build(cfg)`` returns a
 (and, later, training and serving) talks only to this surface, never to
 family modules directly.  ``init`` takes a ``torch.Generator`` in place
 of a PRNG key; its tensors go on the generator's device.  The serving
-members (``init_cache``, ``prefill``, ``decode_step``) are not ported
-yet and raise ``NotImplementedError``.
+members: ``init_cache(batch, max_len, dtype=torch.bfloat16,
+device=None)`` makes a zero cache on ``device`` (default: torch's);
+``prefill(params, batch, cache, **kw)`` fills it from a prompt and
+``decode_step(params, tokens, cache)`` advances it one token.  Both
+write the cache's tensors in place and return a dict holding them with
+the new ``pos``, where the reference returns new arrays: a cache a step
+was given is that step's, not to be used again by its caller.
 """
 from __future__ import annotations
 
@@ -47,14 +52,6 @@ def family_module(cfg: ModelConfig):
     return _FAMILIES[cfg.family]
 
 
-def _not_ported(member: str) -> Callable[..., Any]:
-    def raise_(*args, **kwargs):
-        raise NotImplementedError(
-            f"ModelApi.{member}: the decode path is not ported yet; it "
-            f"comes with the serve engine (ROADMAP queue 1 #6)")
-    return raise_
-
-
 def build(cfg: ModelConfig) -> ModelApi:
     mod = family_module(cfg)
     return ModelApi(
@@ -62,8 +59,11 @@ def build(cfg: ModelConfig) -> ModelApi:
         init=lambda gen: mod.init(cfg, gen),
         loss=lambda params, batch: mod.loss(cfg, params, batch),
         logits=lambda params, batch: mod.logits(cfg, params, batch),
-        init_cache=_not_ported("init_cache"),
-        prefill=_not_ported("prefill"),
-        decode_step=_not_ported("decode_step"),
+        init_cache=lambda batch, max_len, dtype=torch.bfloat16, device=None:
+            mod.init_cache(cfg, batch, max_len, dtype, device),
+        prefill=lambda params, batch, cache, **kw: mod.prefill(
+            cfg, params, batch, cache, **kw),
+        decode_step=lambda params, tokens, cache:
+            mod.decode_step(cfg, params, tokens, cache),
         unembed_table=mod.unembed_table,
     )

@@ -171,3 +171,77 @@ def loss(cfg: ModelConfig, params: Params, batch: Dict[str, Any]):
                          L.next_token_labels(batch), cfg.loss_chunk,
                          L.dtype_of(cfg.logits_dtype))
     return nll, {"nll": nll, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
+    """Zero caches of ``dtype`` on ``device``: the decoder's self-
+    attention KV [L,B,max_len,K,hd] and the cross-attention's keys and
+    values of the encoder states ``xk``/``xv`` [L,B,enc_seq,K,hd]."""
+    K, hd, Ln = cfg.num_kv_heads, cfg.hd, cfg.num_layers
+    self_kv = (Ln, batch, max_len, K, hd)
+    cross_kv = (Ln, batch, cfg.enc_seq, K, hd)
+    return {
+        "k": torch.zeros(self_kv, dtype=dtype, device=device),
+        "v": torch.zeros(self_kv, dtype=dtype, device=device),
+        "xk": torch.zeros(cross_kv, dtype=dtype, device=device),
+        "xv": torch.zeros(cross_kv, dtype=dtype, device=device),
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
+            cache: Dict[str, Any]):
+    """Encode the frames and run the decoder over the prompt; write the
+    self-attention prefix and the cross keys and values into the cache's
+    tensors in place; return last-position logits."""
+    h, _aux, (k, v, xk, xv) = hidden(cfg, params, batch, collect_kv=True)
+    S = batch["tokens"].shape[1]
+    cache["k"][:, :, :S] = k
+    cache["v"][:, :, :S] = v
+    cache["xk"].copy_(xk)
+    cache["xv"].copy_(xv)
+    cache = dict(cache, pos=torch.full((), S, dtype=torch.int32,
+                                       device=cache["k"].device))
+    out = L.unembed(unembed_table(params), h[:, -1:],
+                    L.dtype_of(cfg.logits_dtype))
+    return out, cache
+
+
+def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                cache: Dict[str, Any]):
+    """One decoder step at the learned position ``pos``, attending to
+    its own cached prefix (written in place) and across to the cached
+    encoder keys and values.  tokens [B,1] → (logits [B,1,V], cache)."""
+    _, norm_f = _norm(cfg)
+    B = tokens.shape[0]
+    pos = cache["pos"]
+    x = L.embed(params["embed"], tokens, L.dtype_of(cfg.dtype))
+    pe = params["pos_embed"]                 # clamped, as dynamic_slice does
+    x = x + pe.index_select(0, pos.clamp(max=pe.shape[0] - 1).reshape(
+        1).long()).to(x.dtype)
+    for i in range(cfg.num_layers):
+        p = tree.index(params["dec_blocks"], i)
+        k_c, v_c = cache["k"][i], cache["v"][i]
+        h = norm_f(p["ln1"], x, cfg.norm_eps)
+        q, k, v = L._qkv(p["attn"], h, cfg.num_heads, cfg.num_kv_heads,
+                         cfg.hd, False, cfg.norm_eps)
+        L.write_at(k_c, k, pos)
+        L.write_at(v_c, v, pos)
+        o = L.decode_attention(q, k_c, v_c, pos + 1)
+        x = x + o.reshape(B, 1, -1) @ p["attn"]["wo"].to(x.dtype)
+        h = norm_f(p["ln_x"], x, cfg.norm_eps)
+        qx = (h @ p["cross"]["wq"].to(x.dtype)).reshape(
+            B, 1, cfg.num_heads, cfg.hd)
+        ox = L.naive_attention(qx, cache["xk"][i], cache["xv"][i],
+                               causal=False)
+        x = x + ox.reshape(B, 1, -1) @ p["cross"]["wo"].to(x.dtype)
+        h = norm_f(p["ln2"], x, cfg.norm_eps)
+        x = x + L.mlp(p["mlp"], h, cfg.act)
+    x = norm_f(params["final_norm"], x, cfg.norm_eps)
+    out = L.unembed(unembed_table(params), x, L.dtype_of(cfg.logits_dtype))
+    return out, dict(cache, pos=pos + 1)

@@ -175,3 +175,104 @@ def loss(cfg: ModelConfig, params: Params, batch: Dict[str, Any]):
                          L.next_token_labels(batch), cfg.loss_chunk,
                          L.dtype_of(cfg.logits_dtype))
     return nll + 0.01 * aux, {"nll": nll, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
+    """Zero per-type caches on ``device``: the attention layer's KV
+    [nb,B,max_len,K,hd] of ``dtype``, the Mamba layers' SSD states
+    [nb,n_ssm,B,H,P,N] in float32 and conv tails {x,B,C}
+    [nb,n_ssm,B,k-1,·] of ``dtype`` — one KV cache a period, not a
+    layer, as only one layer in ``attn_every`` attends."""
+    nb = cfg.num_layers // cfg.attn_every
+    n_ssm, _, _, _ = _counts(cfg)
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    di, gn = cfg.ssm_d_inner, cfg.ssm_groups * cfg.ssm_state
+    km1 = cfg.ssm_conv - 1
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+    return {
+        "k": zeros(nb, batch, max_len, cfg.num_kv_heads, cfg.hd),
+        "v": zeros(nb, batch, max_len, cfg.num_kv_heads, cfg.hd),
+        "state": zeros(nb, n_ssm, batch, H, P, N, dt=torch.float32),
+        "conv": {"x": zeros(nb, n_ssm, batch, km1, di),
+                 "B": zeros(nb, n_ssm, batch, km1, gn),
+                 "C": zeros(nb, n_ssm, batch, km1, gn)},
+        "pos": zeros(dt=torch.int32),
+    }
+
+
+def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
+            cache: Dict[str, Any]):
+    """Process the prompt; write the KV prefix, the SSD states and the
+    conv tails into the cache's tensors in place; return last-position
+    logits."""
+    h, _aux, caches = hidden(cfg, params, batch, collect=True)
+    k, v = caches["kv"]                              # [nb,B,S,K,hd]
+    S = batch["tokens"].shape[1]
+    cache["k"][:, :, :S] = k
+    cache["v"][:, :, :S] = v
+    cache["state"].copy_(caches["state"])
+    tree.map(lambda c, t: c.copy_(t), cache["conv"], caches["conv"])
+    cache = dict(cache, pos=torch.full((), S, dtype=torch.int32,
+                                       device=cache["k"].device))
+    out = L.unembed(unembed_table(params), h[:, -1:],
+                    L.dtype_of(cfg.logits_dtype))
+    return out, cache
+
+
+def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                cache: Dict[str, Any]):
+    """One step through the superblock pattern: per-mixer SSD states and
+    conv tails, and the period's KV cache, all updated in place.
+    tokens [B,1] → (logits [B,1,V], the cache with ``pos`` + 1)."""
+    B = tokens.shape[0]
+    pos = cache["pos"]
+    x = L.embed(params["embed"], tokens, L.dtype_of(cfg.dtype))
+    positions = pos.expand(B, 1)
+    for b in range(cfg.num_layers // cfg.attn_every):
+        p = tree.index(params["blocks"], b)
+        k_c, v_c, st = cache["k"][b], cache["v"][b], cache["state"][b]
+        cv = tree.index(cache["conv"], b)
+        i_ssm = i_attn = i_dense = i_moe = 0
+        for j, (mixer, is_moe) in enumerate(_pattern(cfg)):
+            h = L.rms_norm({"scale": p["ln1"][j]}, x, cfg.norm_eps)
+            if mixer == "ssm":
+                tail = tree.index(cv, i_ssm)
+                y, s_n, t_n = L.mamba2_decode_step(
+                    tree.index(p["mamba"], i_ssm), h, cfg,
+                    ssm_state=st[i_ssm], conv_tail=tail)
+                st[i_ssm] = s_n
+                tree.map(lambda c, t: c.copy_(t), tail, t_n)
+                i_ssm += 1
+            else:
+                pa = tree.index(p["attn"], i_attn)
+                i_attn += 1
+                q, k, v = L._qkv(pa, h, cfg.num_heads, cfg.num_kv_heads,
+                                 cfg.hd, cfg.qk_norm, cfg.norm_eps)
+                q = L.apply_rope(q, positions, cfg.rope_theta,
+                                 cfg.mrope_sections, cfg.use_rope)
+                k = L.apply_rope(k, positions, cfg.rope_theta,
+                                 cfg.mrope_sections, cfg.use_rope)
+                L.write_at(k_c, k, pos)
+                L.write_at(v_c, v, pos)
+                o = L.decode_attention(q, k_c, v_c, pos + 1)
+                y = o.reshape(B, 1, cfg.num_heads * cfg.hd) @ \
+                    pa["wo"].to(x.dtype)
+            x = x + y
+            h = L.rms_norm({"scale": p["ln2"][j]}, x, cfg.norm_eps)
+            if is_moe:
+                m, _ = L.moe_layer(tree.index(p["moe"], i_moe), h, cfg)
+                i_moe += 1
+            else:
+                m = L.mlp(tree.index(p["mlp"], i_dense), h, cfg.act)
+                i_dense += 1
+            x = x + m
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    out = L.unembed(unembed_table(params), x, L.dtype_of(cfg.logits_dtype))
+    return out, dict(cache, pos=pos + 1)

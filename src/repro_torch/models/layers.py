@@ -7,9 +7,10 @@ the chunked online-softmax formulation with a recompute backward), the
 SwiGLU/GELU MLP, capacity-based MoE (scatter dispatch and the one-hot
 einsum oracle, with shared experts), the Mamba2 block on the SSD scans
 (:func:`ssd_reference`, :func:`ssd_chunked`), and the embedding, the
-unembedding and the (chunked) cross-entropy.  The decode path
-(``decode_attention``, ``mamba2_decode_step``) and the expert-parallel
-``moe_shard_map`` are not ported yet.
+unembedding and the (chunked) cross-entropy; and the decode path
+(:func:`decode_attention` over a padded KV cache, :func:`mamba2_decode_step`
+with :func:`_conv_decode`).  The expert-parallel ``moe_shard_map`` is
+not ported yet.
 
 Conventions are the reference's: parameters are plain dicts of float32
 tensors made by the matching ``init_*`` functions (from an explicit
@@ -410,6 +411,74 @@ def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _FlashAttention.apply(q, k, v, causal, cq, ck, causal_skip)
 
 
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len) -> torch.Tensor:
+    """Single-token attention against a (padded) KV cache.
+
+    q [B,1,H,D]; caches [B,Smax,K,D]; ``cache_len``: the valid prefix
+    (including the token just written), a scalar or ``[B]`` (the ragged
+    path: one prefix a row).  The softmax over the padded axis is
+    masked; a row whose prefix is empty gives zeros.
+
+    Numerics mirror :func:`_flash_fwd_scan` op for op, as the
+    reference's do: the scale folded into q in the cache's dtype, the
+    scores in float32, ``p`` rounded to v's dtype *before* the
+    normalising sum, ``out = pv / l``.  Decode must reproduce the
+    prefill path's rounding, or ulp-level drift in the hidden state
+    flips near-tied MoE routes and decode leaves teacher forcing.
+
+    The products are grouped by KV head: q is viewed as ``[B, K, H/K,
+    D]`` against the cache's K heads, which gives the products of the
+    reference's ``repeat_kv`` form (head ``h`` reads KV head ``h //
+    (H/K)``) without writing the repeated cache.  Only the one layer's
+    cache that is passed in is widened to float32 (a bfloat16 product
+    is exact in float32).
+    """
+    B, _, H, D = q.shape
+    Smax, K = k_cache.shape[1], k_cache.shape[2]
+    G = H // K
+    dtype = k_cache.dtype
+    qs = q.to(dtype) * torch.tensor(1.0 / math.sqrt(D), dtype=dtype)
+    qg = qs.reshape(B, K, G, D).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float())
+    cl = torch.as_tensor(cache_len, device=q.device)
+    if cl.ndim == 1:                      # ragged: per-row valid prefix [B]
+        cl = cl[:, None, None, None]
+    mask = torch.arange(Smax, device=q.device)[None, None, None, :] < cl
+    s = torch.where(mask, s, _NEG_INF)
+    m = s.amax(dim=-1)
+    m_safe = torch.where(torch.isneginf(m), 0.0, m)
+    p = torch.exp(s - m_safe[..., None]).to(v_cache.dtype)
+    p = torch.where(torch.isneginf(s), 0.0, p).to(v_cache.dtype)
+    pf = p.float()
+    l = pf.sum(dim=-1)
+    pv = torch.einsum("bkgs,bskd->bkgd", pf, v_cache.float())
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    o = (pv / l_safe[..., None]).reshape(B, 1, H, D)
+    return o.to(q.dtype)
+
+
+def write_at(c: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> None:
+    """``c[:, pos] = new[:, 0]`` in place, for every row at one scalar
+    position, clamped into the cache as ``dynamic_update_slice`` clamps
+    its start.  c [B, Smax, ...]; new [B, 1, ...]."""
+    idx = pos.clamp(max=c.shape[1] - 1).reshape(1).long()
+    c.index_copy_(1, idx, new.to(c.dtype))
+
+
+def write_rows(c: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> None:
+    """``c[b, pos[b]] = new[b, 0]`` in place, each row at its own
+    position.  A row whose position lies past the cache keeps its
+    entries, as the reference's scatter drops an out-of-range write (a
+    free slot of the serve engine runs on past ``max_len``)."""
+    Smax = c.shape[1]
+    rows = torch.arange(c.shape[0], device=c.device)
+    inside = pos < Smax
+    idx = torch.where(inside, pos, Smax - 1).long()
+    keep = inside.reshape((-1,) + (1,) * (new.dim() - 2))
+    c[rows, idx] = torch.where(keep, new[:, 0].to(c.dtype), c[rows, idx])
+
+
 def attention_block(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
                     cfg, causal: bool = True) -> torch.Tensor:
     """Full self-attention sublayer (projections + rope + attention)."""
@@ -772,6 +841,48 @@ def mamba2_block(p: Params, x: torch.Tensor, cfg, *, ssm_state=None,
     if return_state:
         return out, final_state, new_tail
     return out
+
+
+def _conv_decode(w: torch.Tensor, tail: torch.Tensor, new: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-token depthwise conv: (out [B,1,C], new_tail [B,k-1,C])."""
+    full = torch.cat([tail, new], dim=1)                     # [B,k,C]
+    out = F.silu((full.float() * w[None]).sum(dim=1, keepdim=True))
+    return out.to(new.dtype), full[:, 1:]
+
+
+def mamba2_decode_step(p: Params, x: torch.Tensor, cfg, *,
+                       ssm_state: torch.Tensor,
+                       conv_tail: Dict[str, torch.Tensor]):
+    """Single-token recurrent update.  x [B,1,d] → (y [B,1,d], the new
+    state [B,H,P,N] in float32, the new conv tails {x,B,C})."""
+    B_, _, d = x.shape
+    di, H = cfg.ssm_d_inner, cfg.ssm_heads
+    N, G, P = cfg.ssm_state, cfg.ssm_groups, cfg.ssm_head_dim
+    z = x @ p["w_z"].to(x.dtype)
+    dt_raw = x @ p["w_dt"].to(x.dtype)
+    xin, tail_x = _conv_decode(p["conv_x"], conv_tail["x"],
+                               x @ p["w_x"].to(x.dtype))
+    Bc, tail_B = _conv_decode(p["conv_B"], conv_tail["B"],
+                              x @ p["w_B"].to(x.dtype))
+    Cc, tail_C = _conv_decode(p["conv_C"], conv_tail["C"],
+                              x @ p["w_C"].to(x.dtype))
+    new_tail = {"x": tail_x, "B": tail_B, "C": tail_C}
+
+    xh = xin.reshape(B_, H, P)
+    dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    Bm = Bc.reshape(B_, G, N)[:, 0]
+    Cm = Cc.reshape(B_, G, N)[:, 0]
+    dA = torch.exp(dt * A)                                   # [B,H]
+    dBx = torch.einsum("bhp,bn,bh->bhpn", xh.float(), Bm.float(), dt)
+    hnew = ssm_state.float() * dA[..., None, None] + dBx
+    y = torch.einsum("bhpn,bn->bhp", hnew, Cm.float())
+    y = y + xh.float() * p["D"][None, :, None]
+    y = y.reshape(B_, 1, di).to(x.dtype)
+    y = rms_norm(p["norm"], y * F.silu(z), cfg.norm_eps)
+    out = y @ p["out_proj"].to(x.dtype)
+    return out, hnew, new_tail
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,7 @@ stack.
 """
 from __future__ import annotations
 
-from typing import Any, Iterator, List, Tuple
+from typing import Any, Callable, Iterator, List, Tuple
 
 import torch
 
@@ -35,6 +35,17 @@ def index(tree: Any, i: int) -> Any:
     if isinstance(tree, tuple):
         return tuple(index(v, i) for v in tree)
     return tree[i]
+
+
+def map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of trees of one structure (the reference's
+    ``jax.tree_util.tree_map``)."""
+    if isinstance(tree, dict):
+        return {k: map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(map(fn, v, *(r[i] for r in rest))
+                     for i, v in enumerate(tree))
+    return fn(tree, *rest)
 
 
 def leaves(tree: Any, prefix: Tuple[str, ...] = ()

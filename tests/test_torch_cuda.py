@@ -807,3 +807,93 @@ def test_reduced_model_on_the_card_matches_the_cpu(cuda, arch):
     assert card_logits.device.type == "cuda"
     assert abs(float(card_loss) - float(cpu_loss)) <= 1e-4
     assert (card_logits.cpu() - cpu_logits).abs().max().item() <= 5e-3
+
+
+def _greedy(api, params, prompt, n_tokens, device, cache_dtype):
+    """Per-request generation: prefill, then uniform decode steps."""
+    toks = torch.tensor(np.asarray(prompt)[None], dtype=torch.int32,
+                        device=device)
+    with torch.inference_mode():
+        cache = api.init_cache(1, 128, cache_dtype, device=device)
+        logits, cache = api.prefill(params, {"tokens": toks}, cache)
+        out = [int(logits[0, -1].argmax())]
+        for _ in range(n_tokens - 1):
+            logits, cache = api.decode_step(
+                params, torch.tensor([[out[-1]]], dtype=torch.int32,
+                                     device=device), cache)
+            out.append(int(logits[0, 0].argmax()))
+    return out
+
+
+def _small_llama(device, dtype):
+    from repro_torch.models import build, get_config
+    cfg = get_config("llama3.2-1b").reduced().override(
+        num_layers=2, vocab_size=128, dtype=dtype)
+    api = build(cfg)
+    return api, api.init(torch.Generator(device=device).manual_seed(0))
+
+
+def test_serve_engine_float32_tokens_on_the_card(cuda):
+    """The engine on the card in float32 (a float32 cache): each
+    request's greedy tokens equal its own prefill plus uniform decode
+    steps, with mixed prompt lengths through two slots."""
+    from repro_torch.serve import ServeConfig, ServeEngine
+    if torch.backends.cuda.matmul.allow_tf32:
+        pytest.fail("float32 products must not run in TF32 here")
+    api, params = _small_llama(cuda, "float32")
+    prompts = [np.arange(1, 6), np.arange(20, 34), np.arange(3, 12)]
+    refs = [_greedy(api, params, p, 6, cuda, torch.float32) for p in prompts]
+    eng = ServeEngine(api, params, ServeConfig(
+        max_batch=2, max_len=128, prompt_buckets=(16,),
+        cache_dtype=torch.float32))
+    assert eng.cache["k"].device.type == cuda.type
+    reqs = [eng.submit(p, max_tokens=6) for p in prompts]
+    eng.run()
+    assert [r.output for r in reqs] == refs
+
+
+class _SlowPrefillApi:
+    """A ModelApi whose prefill queues a long chain of device work that
+    the logits depend on, without changing them (a factor 1 + ~1e-34 is
+    1 in float32): TTFT-visible device time."""
+
+    def __init__(self, api, chain=48, dim=2048):
+        self._api = api
+        self.cfg = api.cfg
+        self._chain = chain
+        self._dim = dim
+
+    def init_cache(self, *a, **k):
+        return self._api.init_cache(*a, **k)
+
+    def prefill(self, params, batch, cache, logit_pos=None):
+        logits, cache = self._api.prefill(params, batch, cache,
+                                          logit_pos=logit_pos)
+        x = torch.full((self._dim, self._dim), 0.5, device=logits.device)
+        for _ in range(self._chain):
+            x = torch.sin(x @ x)                   # bounded: never inf/NaN
+        return logits * (1.0 + x.mean() * 1e-34), cache
+
+
+def test_fenced_ttft_not_below_unfenced_on_the_card(cuda):
+    """On the card launches return before the device computes: without
+    the fence ``first_token_at`` is stamped at enqueue, with it after
+    the logits are computed, so on a slow prefill the fenced TTFT is the
+    larger (the reference's test; on the CPU the two are equal)."""
+    from repro_torch.serve import ServeConfig, ServeEngine
+    api, params = _small_llama(cuda, "bfloat16")
+    eng = ServeEngine(_SlowPrefillApi(api), params, ServeConfig(
+        max_batch=1, max_len=128, prompt_buckets=(16,)))
+    prompt = np.arange(1, 11)
+    eng.submit(prompt, max_tokens=2)
+    eng.run()                                      # warm
+
+    def ttft(fenced):
+        eng.cfg.fence_timestamps = fenced
+        req = eng.submit(prompt, max_tokens=2)
+        eng.run()
+        return req.first_token_at - req.submitted_at
+
+    unfenced = min(ttft(False) for _ in range(3))
+    fenced = min(ttft(True) for _ in range(3))
+    assert fenced >= unfenced

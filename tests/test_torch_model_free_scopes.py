@@ -75,16 +75,16 @@ def documents(tmp_path_factory):
     return docs
 
 
-def test_list_scopes_names_eight():
-    """The eight scopes the model-free slice ported, and the model scope
-    after them: nine of the reference's ten (serve is not ported)."""
+def test_list_scopes_names_ten():
+    """The eight scopes the model-free slice ported, then the model and
+    serve scopes: all ten of the reference's."""
     r = cli("repro_torch", "--list-scopes")
     assert r.returncode == 0, r.stderr
     names = [line.split()[0] for line in r.stdout.splitlines() if line]
     assert sorted(names) == sorted(["example", "mxu", "histo", "nn",
                                     "linalg", "instr", "comm", "io",
-                                    "model"])
-    assert len(BUILTIN_SCOPES) == 9
+                                    "model", "serve"])
+    assert len(BUILTIN_SCOPES) == 10
 
 
 @pytest.mark.parametrize("scope", SCOPES)

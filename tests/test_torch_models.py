@@ -154,10 +154,3 @@ def test_params_from_numpy_keeps_values_and_device(ref_tree):
     got = params["blocks"]["moe"]["w_up"]
     assert got.dtype == torch.float32 and got.device.type == "cpu"
     np.testing.assert_array_equal(got.numpy(), tree["blocks"]["moe"]["w_up"])
-
-
-def test_serving_members_raise_until_ported():
-    api = build(get_config("llama3.2-1b").reduced())
-    for member in (api.init_cache, api.prefill, api.decode_step):
-        with pytest.raises(NotImplementedError, match="queue 1 #6"):
-            member(None, None, None)

@@ -103,7 +103,7 @@ def test_nn_run_on_cpu_pairs_with_reference(tmp_path):
                              "histo": "disabled", "nn": "enabled",
                              "linalg": "disabled", "instr": "disabled",
                              "comm": "disabled", "io": "disabled",
-                             "model": "disabled"}
+                             "model": "disabled", "serve": "disabled"}
 
 
 def test_nn_param_selects_the_same_small_point(tmp_path):

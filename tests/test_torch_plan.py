@@ -3,6 +3,7 @@ reference's ``tests/test_plan.py`` run through the port on the CPU, one
 test for each of the reference's, plus parity with the reference (plan
 IDs, the reference's readers on the port's run directories) and the
 port's ``plan`` CLI and ``--help`` examples."""
+import argparse
 import json
 import os
 import shlex
@@ -310,7 +311,10 @@ def test_help_examples_appear_and_parse():
     mgr = ScopeManager(registry=BenchmarkRegistry(), flags=FlagRegistry(),
                        hooks=HookChain())
     mgr.load()
-    flag_parser = mgr.flags.build_parser(FLAGS.build_parser())
+    # the process's FLAGS also hold the scope flags of any run made in
+    # this process before: the fresh manager's declarations replace them
+    flag_parser = mgr.flags.build_parser(FLAGS.build_parser(
+        argparse.ArgumentParser(conflict_handler="resolve")))
     parsers = _parsers()
     assert set(EXAMPLES) == set(parsers)
     for cmd, examples in EXAMPLES.items():

@@ -87,7 +87,7 @@ def test_slice_run_on_cpu_pairs_with_reference(tmp_path):
                              "histo": "enabled", "nn": "disabled",
                              "linalg": "disabled", "instr": "disabled",
                              "comm": "disabled", "io": "disabled",
-                             "model": "disabled"}
+                             "model": "disabled", "serve": "disabled"}
 
 
 def _families(mgr_cls, registry, flags, hooks, name):
