@@ -163,9 +163,33 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      --enable-scope serve --meters wall,cpu,latency --slo-ms 200``; every
      record must carry ``latency_p99_s``, ``ttft_p99_s``,
      ``queue_depth_mean`` and ``slo_attainment``;
- 17. a ``{"host_path_us": ..., "main_path_idle": ...}`` line, a
+ 17. train: llama3.2-1b at its published width and depth through the
+     port's one-card trainer (``repro_torch.launch.train.train``,
+     weights from its ``init``, seed 0), ``TRAIN_STEPS`` steps of B2 x
+     S4096 tokens from the port's data pipeline, bf16 compute over
+     float32 parameters, gradients and AdamW moments, the reference's
+     training policy (remat ``full``, loss chunk 1024), lr 3e-4: the
+     step's median ms from the third step, tokens/s, ``mfu`` (three
+     forwards' model FLOPs: remat's recompute is not counted),
+     ``max_memory_allocated``, each step's loss, grad_norm and lr, and
+     one profiled step's idle share and top aten ops.  Checks, each
+     failing the script: (a) every loss and grad_norm finite, and the
+     first step's loss within ``TRAIN_FIRST_LOSS_TOL`` of ``api.loss``
+     under inference_mode on the same weights and batch; at reduced
+     size, (b) three float32 train steps on the card against the CPU
+     from one state (llama3.2-1b with 2 layers, mamba2-780m,
+     deepseek-moe-16b; loss ``TRAIN_CPU_LOSS_TOL``, grad_norm relative
+     ``TRAIN_CPU_NORM_RTOL``), (c) gradients under remat none, full
+     and dots within ``TRAIN_REMAT_TOL``, (d) a run halted at step 7
+     of 14 and resumed through the checkpoint manager ends within
+     ``TRAIN_RESUME_TOL`` of the uninterrupted run, (e) bf16 steps'
+     loss within ``TRAIN_BF16_TOL`` of float32's.  No hand-written
+     kernel lies on this path (the reference's train step calls no
+     Pallas kernel);
+ 18. a ``{"host_path_us": ..., "main_path_idle": ...}`` line, a
      ``{"models": [...]}`` line (phase 8's rows), a ``{"serve": ...}``
-     line (phases 15 and 16), then one
+     line (phases 15 and 16), a ``{"train": ...}`` line (phase 17),
+     then one
      ``{"kernels": [...]}`` line: per kernel its launches on the main
      path (with each variant's, for matmul, flash attention and SSD), its
      largest error against the plain version, and its time,
@@ -174,7 +198,7 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      instantiated tile under ``tiles``).
      ``ms`` is the time per call of back-to-back calls through the
      wrapper (CUDA events), ``device_ms`` the kernels alone (profiler);
- 18. last line: ``{"ok": true, "device": {...}}``.
+ 19. last line: ``{"ok": true, "device": {...}}``.
 
 Every comparison holds the kernel to its plain version on the same
 inputs with ``atol = rtol = tol``, ``tol`` being the reference's own
@@ -2176,6 +2200,315 @@ def phase_serve_scope() -> dict:
     return {"wall_s": r.wall_s, "records": rows}
 
 
+#: The train phase: llama3.2-1b at its published width and depth (16
+#: layers, d_model 2048, vocab 128,256) trained by the port's one-card
+#: trainer (``repro_torch.launch.train.train``) under the reference's
+#: training policy (``src/repro/launch/dryrun.py:62``: remat full, the
+#: loss in chunks of 1024 positions), bf16 compute over float32
+#: parameters, gradients and AdamW moments, one microbatch of
+#: ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens from the port's data pipeline
+#: (seed 0), ``TRAIN_STEPS`` steps at lr ``TRAIN_LR``.  Step times are
+#: the median from the third step on.
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 4096, 10, 3e-4
+TRAIN_OVERRIDES = {"remat": "full", "loss_chunk": 1024}
+#: (a) the first step's loss against ``api.loss`` under inference_mode
+#: on the same weights and batch.
+TRAIN_FIRST_LOSS_TOL = 1e-3
+#: (b) float32 steps on the card against the CPU from one state:
+#: ``TRAIN_CHECK_STEPS`` steps of B ``TRAIN_CHECK_BATCH`` x S
+#: ``TRAIN_CHECK_SEQ`` on each reduced arch (llama with 2 layers); the
+#: loss (absolute) and grad_norm (relative) per step.
+TRAIN_CHECK_ARCHS = (("llama3.2-1b", {"num_layers": 2}),
+                     ("mamba2-780m", {}), ("deepseek-moe-16b", {}))
+TRAIN_CHECK_STEPS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 3, 2, 64
+TRAIN_CPU_LOSS_TOL, TRAIN_CPU_NORM_RTOL = 1e-4, 1e-4
+#: (c) gradients under remat none, full and dots (largest |difference|).
+TRAIN_REMAT_TOL = 1e-6
+#: (d) a run halted at step 7 of 14 and resumed through the manager
+#: against the uninterrupted run: the last loss (the reference test's
+#: bound).
+TRAIN_RESUME_TOL = 2e-3
+#: (e) the bf16 steps' loss against float32's from one state.
+TRAIN_BF16_TOL = 5e-2
+
+
+def _train_batches(cfg, n, batch, seq, seed=0):
+    """``n`` batches of the port's data pipeline, as on the trainer's
+    path (tokens and labels, int32)."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    src = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                 global_batch=batch, seed=seed))
+    return [{k: torch.from_numpy(v) for k, v in src.batch(i).items()}
+            for i in range(n)]
+
+
+def _on(t, device):
+    """A copy of a tree of tensors on ``device`` (each step writes its
+    state in place, so two runs never share one)."""
+    from repro_torch.models import tree
+    return tree.map(lambda x: x.to(device, copy=True), t)
+
+
+def train_checks(hw) -> dict:
+    """Checks (b)–(e) at reduced size, each failing the phase."""
+    from repro_torch.launch.train import train
+    from repro_torch.models import build, get_config, tree
+    from repro_torch.train import AdamWConfig, make_init_fn, make_train_step
+    from repro_torch.train.step import _grad_fn
+    out = {"cpu": {}}
+    opt = AdamWConfig(lr=1e-3, total_steps=20, warmup_steps=2)
+    # (b) float32: the card against the CPU, one state, the same batches
+    for arch, kw in TRAIN_CHECK_ARCHS:
+        cfg = get_config(arch).reduced().override(dtype="float32", **kw)
+        api = build(cfg)
+        state = make_init_fn(api, opt)(torch.Generator().manual_seed(0))
+        batches = _train_batches(cfg, TRAIN_CHECK_STEPS, TRAIN_CHECK_BATCH,
+                                 TRAIN_CHECK_SEQ)
+        step = make_train_step(api, opt)
+        runs = {}
+        for device in ("cuda", "cpu"):
+            st, ms = _on(state, device), []
+            for b in batches:
+                st, m = step(st, _on(b, device))
+                ms.append({k: float(v) for k, v in m.items()})
+            runs[device] = ms
+        loss_err = max(abs(c["loss"] - h["loss"])
+                       for c, h in zip(runs["cuda"], runs["cpu"]))
+        norm_err = max(abs(c["grad_norm"] - h["grad_norm"]) / h["grad_norm"]
+                       for c, h in zip(runs["cuda"], runs["cpu"]))
+        out["cpu"][arch] = {"layers": cfg.num_layers,
+                            "loss_card": [m["loss"] for m in runs["cuda"]],
+                            "loss_cpu": [m["loss"] for m in runs["cpu"]],
+                            "loss_abs_err": loss_err,
+                            "grad_norm_rel_err": norm_err}
+        log(f"train check (b) {arch} reduced ({cfg.num_layers} layers) "
+            f"float32, {TRAIN_CHECK_STEPS} steps B{TRAIN_CHECK_BATCH} x "
+            f"S{TRAIN_CHECK_SEQ}, card against CPU: loss "
+            f"{loss_err:.3g} (tol {TRAIN_CPU_LOSS_TOL}), grad_norm relative "
+            f"{norm_err:.3g} (tol {TRAIN_CPU_NORM_RTOL})")
+        if not (loss_err <= TRAIN_CPU_LOSS_TOL
+                and norm_err <= TRAIN_CPU_NORM_RTOL):
+            raise AssertionError(f"train (b) {arch}: card against CPU: "
+                                 f"{out['cpu'][arch]}")
+    # (c) remat none, full and dots give the same gradients on the card
+    cfg = get_config(TRAIN_ARCH).reduced().override(dtype="float32")
+    params = build(cfg).init(torch.Generator(device="cuda").manual_seed(1))
+    batch = _on(_train_batches(cfg, 1, 2, 128)[0], "cuda")
+    grads = {m: _grad_fn(build(cfg.override(remat=m)))(params, batch)[1]
+             for m in ("none", "full", "dots")}
+    remat_err = max(float((a - b).abs().max())
+                    for m in ("full", "dots")
+                    for (_, a), (_, b) in zip(tree.leaves(grads[m]),
+                                              tree.leaves(grads["none"])))
+    out["remat_max_abs_err"] = remat_err
+    log(f"train check (c) {TRAIN_ARCH} reduced float32 on the card: "
+        f"gradients under remat full and dots against none: max abs err "
+        f"{remat_err:.3g} (tol {TRAIN_REMAT_TOL})")
+    if not remat_err <= TRAIN_REMAT_TOL:
+        raise AssertionError(f"train (c): remat gradients differ by "
+                             f"{remat_err}")
+    # (d) halt at step 7 of 14, resume through the manager, on the card
+    kw = dict(steps=14, global_batch=2, seq_len=32, lr=1e-3, seed=5,
+              log_every=100, device="cuda")
+    full = train(TRAIN_ARCH, **kw)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="train-resume-",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        half = train(TRAIN_ARCH, ckpt_dir=ckpt, ckpt_every=7, halt_at=7,
+                     **kw)
+        resumed = train(TRAIN_ARCH, ckpt_dir=ckpt, ckpt_every=7, **kw)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    resume_err = abs(resumed["last_loss"] - full["last_loss"])
+    out["resume"] = {"full_last_loss": full["last_loss"],
+                     "resumed_last_loss": resumed["last_loss"],
+                     "halted_steps": half["steps"],
+                     "resumed_steps": resumed["steps"],
+                     "abs_err": resume_err}
+    log(f"train check (d) resume on the card: halted after "
+        f"{half['steps']} steps, resumed for {resumed['steps']}; last loss "
+        f"{resumed['last_loss']:.6f} against the uninterrupted "
+        f"{full['last_loss']:.6f}: {resume_err:.3g} (tol {TRAIN_RESUME_TOL})")
+    if not (half["steps"] == 7 and resumed["steps"] == 7
+            and resume_err <= TRAIN_RESUME_TOL):
+        raise AssertionError(f"train (d): {out['resume']}")
+    # (e) bf16 against float32 from one state, the same batches
+    cfg = get_config(TRAIN_ARCH).reduced()
+    state = make_init_fn(build(cfg), opt)(
+        torch.Generator(device="cuda").manual_seed(2))
+    batches = [_on(b, "cuda") for b in _train_batches(
+        cfg, TRAIN_CHECK_STEPS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ)]
+    losses = {}
+    for dtype in ("bfloat16", "float32"):
+        step = make_train_step(build(cfg.override(dtype=dtype)), opt)
+        st, losses[dtype] = _on(state, "cuda"), []
+        for b in batches:
+            st, m = step(st, b)
+            losses[dtype].append(float(m["loss"]))
+    bf16_err = max(abs(a - b) for a, b in zip(losses["bfloat16"],
+                                              losses["float32"]))
+    out["bf16"] = {"loss_bf16": losses["bfloat16"],
+                   "loss_float32": losses["float32"], "abs_err": bf16_err}
+    log(f"train check (e) {TRAIN_ARCH} reduced, {TRAIN_CHECK_STEPS} steps: "
+        f"bf16 loss {losses['bfloat16']} against float32 "
+        f"{losses['float32']}: {bf16_err:.3g} (tol {TRAIN_BF16_TOL})")
+    if not bf16_err <= TRAIN_BF16_TOL:
+        raise AssertionError(f"train (e): {out['bf16']}")
+    return out
+
+
+def train_split(api, opt, state, batch) -> dict:
+    """One train step taken apart, each part fenced, as
+    ``make_train_step`` runs it: the loss forward under grad (on
+    aliases of the parameters that require grad), the backward
+    (``torch.autograd.grad``), clipping and AdamW (ms); and the memory
+    above the state's own bytes: what the forward keeps for the
+    backward, and the peaks of the forward, the backward and the
+    optimizer."""
+    from repro_torch.models import tree
+    from repro_torch.train import (adamw_update, clip_by_global_norm,
+                                   warmup_cosine)
+    nbytes = sum(t.numel() * t.element_size() for t in tree.flatten(state))
+    alias = tree.map(lambda p: p.detach().requires_grad_(), state["params"])
+    leaves = tree.flatten(alias)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    marks, peaks = [time.perf_counter()], {}
+
+    def fence(name):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.reset_peak_memory_stats()
+    loss, _ = api.loss(alias, batch)
+    fence("forward")
+    kept = torch.cuda.memory_allocated() - base
+    grads = torch.autograd.grad(loss, leaves)
+    del loss
+    fence("backward")
+    grads = tree.unflatten(alias, grads)    # the tuple goes: one copy
+    grads, _ = clip_by_global_norm(grads, opt.grad_clip)
+    fence("clip")
+    adamw_update(opt, grads, state["opt"], state["params"],
+                 warmup_cosine(opt))
+    fence("adamw")
+    names = ["forward", "backward", "clip", "adamw"]
+    return {"state_bytes": nbytes, "forward_kept_bytes": kept,
+            "ms": {n: (b - a) * 1e3 for n, a, b in
+                   zip(names, marks, marks[1:])},
+            "peak_above_state_bytes": peaks}
+
+
+def phase_train(hw: dict) -> dict:
+    """llama3.2-1b trained at full width on the card through the port's
+    trainer: the step's median ms, tokens/s, ``mfu`` (three forwards'
+    model FLOPs: remat's recompute is not counted), peak memory, each
+    step's loss, grad_norm and lr, and one profiled step; check (a), the
+    first step's loss against the inference forward's; then checks
+    (b)–(e) at reduced size."""
+    from repro_torch.launch.train import train
+    from repro_torch.models import build, get_config
+    from repro_torch.train import AdamWConfig, make_init_fn, make_train_step
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("float32 products must not run in TF32 here")
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH).override(**TRAIN_OVERRIDES)
+    api = build(cfg)
+    batch0 = _on(_train_batches(cfg, 1, TRAIN_BATCH, TRAIN_SEQ)[0], "cuda")
+    # (a) the trainer's weights (its init from seed 0) under inference_mode
+    params = api.init(torch.Generator(device="cuda").manual_seed(0))
+    with torch.inference_mode():
+        loss_inference = float(api.loss(params, batch0)[0])
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = train(TRAIN_ARCH, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                seq_len=TRAIN_SEQ, lr=TRAIN_LR, reduced=False,
+                overrides=TRAIN_OVERRIDES, log_every=1, seed=0,
+                device="cuda")
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    if not (len(hist) == TRAIN_STEPS and all(
+            math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+            for h in hist)):
+        raise AssertionError(f"train: steps not all finite: {hist}")
+    first_err = abs(hist[0]["loss"] - loss_inference)
+    if not first_err <= TRAIN_FIRST_LOSS_TOL:
+        raise AssertionError(
+            f"train (a): first step's loss {hist[0]['loss']} against the "
+            f"inference forward's {loss_inference} ({first_err:.3g}, tol "
+            f"{TRAIN_FIRST_LOSS_TOL})")
+    times = [h["seconds"] * 1e3 for h in hist]
+    steady = sorted(times[2:])
+    ms = steady[len(steady) // 2]
+    flops = 3 * forward_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    # one profiled step on a fresh state (the trainer's is gone)
+    opt = AdamWConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS, warmup_steps=5)
+    step_fn = make_train_step(api, opt)
+    held = {"state": make_init_fn(api, opt)(
+        torch.Generator(device="cuda").manual_seed(0))}
+
+    def one_step():
+        held["state"], m = step_fn(held["state"], batch0)
+        return float(m["loss"])
+    one_step()                                              # warm
+    profiled = profile_step(one_step, top=10)
+    split = train_split(api, opt, held["state"], batch0)
+    del held["state"]
+    torch.cuda.empty_cache()
+    row = {
+        "arch": TRAIN_ARCH, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "params": cfg.num_params(), "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "dtype": cfg.dtype, "remat": cfg.remat, "loss_chunk": cfg.loss_chunk,
+        "microbatches": 1, "lr": TRAIN_LR, "steps": TRAIN_STEPS,
+        "ms": ms, "step_ms": times,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+        "model_flops": flops,
+        "mfu": flops / (ms / 1e3 * hw["peak_bf16_flops"]),
+        "max_memory_allocated": peak,
+        "loss": [h["loss"] for h in hist],
+        "grad_norm": [h["grad_norm"] for h in hist],
+        "lr_by_step": [h["lr"] for h in hist],
+        "loss_inference": loss_inference, "first_loss_abs_err": first_err,
+        "trainer_seconds": out["seconds"],
+        "profiled_step": profiled, "split": split, "card": hw["card"],
+    }
+    log(f"train {TRAIN_ARCH} ({cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.num_params():,} params) B{TRAIN_BATCH} x S{TRAIN_SEQ} "
+        f"{cfg.dtype}, remat {cfg.remat}, loss chunk {cfg.loss_chunk}, "
+        f"float32 parameters and AdamW on {hw['card']}: median "
+        f"{ms:.2f} ms a step from step 3 ("
+        + ", ".join(f"{t:.1f}" for t in times)
+        + f"); {row['tokens_per_s']:.0f} tokens/s; {flops:.4g} model FLOPs "
+        f"(3 forwards); mfu {row['mfu']:.4f}; max_memory_allocated "
+        f"{peak:,} B ({peak / 2**30:.2f} GiB)")
+    log("  loss " + ", ".join(f"{h['loss']:.4f}" for h in hist)
+        + "; grad_norm " + ", ".join(f"{h['grad_norm']:.4f}" for h in hist)
+        + "; lr " + ", ".join(f"{h['lr']:.3g}" for h in hist))
+    log(f"  check (a): first step's loss {hist[0]['loss']:.6f} against the "
+        f"inference forward's {loss_inference:.6f}: {first_err:.3g} (tol "
+        f"{TRAIN_FIRST_LOSS_TOL})")
+    log(f"  profiled step: wall {profiled['wall_ms']:.2f} ms, device busy "
+        f"{profiled['device_busy_ms']:.2f} ms (idle share "
+        f"{profiled['idle_share']:.4f}), {profiled['kernels']} kernels; "
+        f"device ms by op: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in profiled["device_ms_by_op"].items()))
+    log("  one step taken apart: " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in split["ms"].items())
+        + f"; state {split['state_bytes']:,} B; the forward keeps "
+        f"{split['forward_kept_bytes']:,} B for the backward; peaks above "
+        f"the state: " + ", ".join(
+            f"{k} {v:,} B" for k, v in
+            split["peak_above_state_bytes"].items()))
+    row["checks"] = train_checks(hw)
+    row["phase_s"] = time.perf_counter() - t_phase
+    log(f"train phase: {row['phase_s']:.1f} s")
+    return row
+
+
 def main() -> int:
     hw = phase_device()
     sass = phase_build()
@@ -2190,6 +2523,7 @@ def main() -> int:
     tune = phase_tune()
     serve = phase_serve(hw)
     serve["scope_child"] = phase_serve_scope()
+    trained = phase_train(hw)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["sass"] = sass[k["name"]]
@@ -2202,6 +2536,7 @@ def main() -> int:
                       "main_path_model_free": model_free}), flush=True)
     print(json.dumps({"models": models}), flush=True)
     print(json.dumps({"serve": serve}), flush=True)
+    print(json.dumps({"train": trained}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,8 +25,9 @@ the other:
 
 A CUDA tensor is copied to the host to be written, as the reference's
 ``np.asarray(shard.data)`` is, and :func:`load_checkpoint` returns host
-tensors.  The reference's ``CheckpointManager`` and
-``restore_resharded`` are not ported yet.
+tensors.  The manager that saves while a trainer runs is in
+``manager.py``; the reference's ``restore_resharded`` is not ported
+yet.
 """
 from __future__ import annotations
 

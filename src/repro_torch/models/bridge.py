@@ -5,7 +5,9 @@ to each other with one set of weights: the reference's parameter tree,
 as numpy (``jax.tree_util.tree_map(np.asarray, params)``), becomes the
 port's tree here.  The tree must have exactly the keys and shapes of the
 one the port's own ``init`` makes: a renamed or transposed weight fails
-loudly instead of computing something else.
+loudly instead of computing something else.  A trainer's whole state
+(weights, AdamW moments and counters) crosses with
+:func:`train_state_from_numpy`.
 """
 from __future__ import annotations
 
@@ -43,3 +45,14 @@ def params_from_numpy(cfg: ModelConfig, params: Dict[str, Any],
         raise ValueError(f"{cfg.name}: parameter shapes differ from the "
                          f"port's init (got, want): {shapes}")
     return from_numpy(params, device)
+
+
+def train_state_from_numpy(cfg: ModelConfig, state: Dict[str, Any],
+                           device: Any = "cpu") -> Dict[str, Any]:
+    """The reference's ``TrainState`` as numpy (``{"params", "opt": {m,
+    v, count}, "step"}``) → the port's on ``device``: the parameters
+    through :func:`params_from_numpy` (keys and shapes checked), the
+    moments, ``count`` and ``step`` through ``from_numpy``."""
+    return {"params": params_from_numpy(cfg, state["params"], device),
+            "opt": from_numpy(state["opt"], device),
+            "step": from_numpy(state["step"], device)}

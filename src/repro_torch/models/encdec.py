@@ -8,7 +8,10 @@ and cross-attention.  Whisper uses LayerNorm + GELU and no rotary
 embedding, driven by the config (norm="layernorm", act="gelu",
 use_rope=False).  Attention over ``enc_seq`` keys (1500 for
 whisper-small) is chunked by :func:`~repro_torch.models.layers.
-pick_chunk`, the largest divisor of the length within the target.
+pick_chunk`, the largest divisor of the length within the target.  The
+encoder's and the decoder's layers run as Python loops over
+``tree.unstack``, each block under ``cfg.remat == "full"`` when set, as
+in the reference.
 """
 from __future__ import annotations
 
@@ -90,8 +93,8 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor
     dtype = L.dtype_of(cfg.dtype)
     x = frames.to(dtype) + sinusoids(Se, d, frames.device).to(dtype)[None]
     ck = L.pick_chunk(Se, cfg.attn_chunk_k)
-    for i in range(cfg.num_enc_layers):
-        p = tree.index(params["enc_blocks"], i)
+
+    def block(x, p):
         h = norm_f(p["ln1"], x, cfg.norm_eps)
         q, k, v = L._qkv(p["attn"], h, cfg.num_heads, cfg.num_kv_heads,
                          cfg.hd, False, cfg.norm_eps)
@@ -99,7 +102,11 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor
                                   chunk_q=ck, chunk_k=ck)
         x = x + o.reshape(B, Se, -1) @ p["attn"]["wo"].to(x.dtype)
         h = norm_f(p["ln2"], x, cfg.norm_eps)
-        x = x + L.mlp(p["mlp"], h, cfg.act)
+        return x + L.mlp(p["mlp"], h, cfg.act)
+
+    block = L.maybe_remat(block, cfg)
+    for p in tree.unstack(params["enc_blocks"]):
+        x = block(x, p)
     return norm_f(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -125,9 +132,8 @@ def _decoder(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     x = L.embed(params["embed"], tokens, L.dtype_of(cfg.dtype))
     x = x + params["pos_embed"][:S].to(x.dtype)[None]
     ckx = L.pick_chunk(enc.shape[1], cfg.attn_chunk_k)
-    kvs = []
-    for i in range(cfg.num_layers):
-        p = tree.index(params["dec_blocks"], i)
+
+    def block(x, p):
         h = norm_f(p["ln1"], x, cfg.norm_eps)
         q, k, v = L._qkv(p["attn"], h, cfg.num_heads, cfg.num_kv_heads,
                          cfg.hd, False, cfg.norm_eps)
@@ -146,8 +152,14 @@ def _decoder(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         x = x + ox.reshape(B, S, -1) @ p["cross"]["wo"].to(x.dtype)
         h = norm_f(p["ln2"], x, cfg.norm_eps)
         x = x + L.mlp(p["mlp"], h, cfg.act)
+        return x, ((k, v, kx, vx) if collect_kv else None)
+
+    block = L.maybe_remat(block, cfg)
+    kvs = []
+    for p in tree.unstack(params["dec_blocks"]):
+        x, kv = block(x, p)
         if collect_kv:
-            kvs.append((k, v, kx, vx))
+            kvs.append(kv)
     x = norm_f(params["final_norm"], x, cfg.norm_eps)
     return x, (tree.stack(kvs) if collect_kv else None)
 

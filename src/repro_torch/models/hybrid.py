@@ -7,7 +7,8 @@ positional encoding (``use_rope=False``).
 
 Parameters are organized as the reference's *superblocks*: the layer
 stacks inside one period are stacked across periods, and the forward is
-one Python loop over the periods.
+one Python loop over the periods of ``tree.unstack``, each superblock
+under ``cfg.remat == "full"`` when set, as in the reference.
 """
 from __future__ import annotations
 
@@ -93,13 +94,16 @@ def _superblock(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 positions: torch.Tensor, collect: bool):
     """Apply one period of sublayers.  Returns (x, aux, caches)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    mambas, attns = tree.unstack(p["mamba"]), tree.unstack(p["attn"])
+    dense, moes = tree.unstack(p["mlp"]), tree.unstack(p["moe"])
+    ln1, ln2 = torch.unbind(p["ln1"]), torch.unbind(p["ln2"])
     i_ssm = i_attn = i_dense = i_moe = 0
     kv = None
     states, tails = [], []
     for j, (mixer, is_moe) in enumerate(_pattern(cfg)):
-        h = L.rms_norm({"scale": p["ln1"][j]}, x, cfg.norm_eps)
+        h = L.rms_norm({"scale": ln1[j]}, x, cfg.norm_eps)
         if mixer == "ssm":
-            pm = tree.index(p["mamba"], i_ssm)
+            pm = mambas[i_ssm]
             i_ssm += 1
             if collect:
                 y, st, tl = L.mamba2_block(pm, h, cfg, return_state=True)
@@ -108,7 +112,7 @@ def _superblock(cfg: ModelConfig, p: Params, x: torch.Tensor,
             else:
                 y = L.mamba2_block(pm, h, cfg)
         else:
-            pa = tree.index(p["attn"], i_attn)
+            pa = attns[i_attn]
             i_attn += 1
             q, k, v = L._qkv(pa, h, cfg.num_heads, cfg.num_kv_heads, cfg.hd,
                              cfg.qk_norm, cfg.norm_eps)
@@ -126,13 +130,13 @@ def _superblock(cfg: ModelConfig, p: Params, x: torch.Tensor,
             if collect:
                 kv = (k, v)
         x = x + y
-        h = L.rms_norm({"scale": p["ln2"][j]}, x, cfg.norm_eps)
+        h = L.rms_norm({"scale": ln2[j]}, x, cfg.norm_eps)
         if is_moe:
-            m, aux = L.moe_layer(tree.index(p["moe"], i_moe), h, cfg)
+            m, aux = L.moe_layer(moes[i_moe], h, cfg)
             i_moe += 1
             aux_total = aux_total + aux
         else:
-            m = L.mlp(tree.index(p["mlp"], i_dense), h, cfg.act)
+            m = L.mlp(dense[i_dense], h, cfg.act)
             i_dense += 1
         x = x + m
     caches = None
@@ -152,10 +156,14 @@ def hidden(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
     B, S = tokens.shape
     x = L.embed(params["embed"], tokens, L.dtype_of(cfg.dtype))
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+
+    def block(x, p):
+        return _superblock(cfg, p, x, positions, collect)
+
+    block = L.maybe_remat(block, cfg)
     auxs, caches = [], []
-    for b in range(cfg.num_layers // cfg.attn_every):
-        x, aux, c = _superblock(cfg, tree.index(params["blocks"], b), x,
-                                positions, collect)
+    for p in tree.unstack(params["blocks"]):
+        x, aux, c = block(x, p)
         auxs.append(aux)
         caches.append(c)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)

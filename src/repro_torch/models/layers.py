@@ -9,8 +9,9 @@ einsum oracle, with shared experts), the Mamba2 block on the SSD scans
 (:func:`ssd_reference`, :func:`ssd_chunked`), and the embedding, the
 unembedding and the (chunked) cross-entropy; and the decode path
 (:func:`decode_attention` over a padded KV cache, :func:`mamba2_decode_step`
-with :func:`_conv_decode`).  The expert-parallel ``moe_shard_map`` is
-not ported yet.
+with :func:`_conv_decode`); and :func:`maybe_remat`, the per-layer
+rematerialization the families apply under grad.  The expert-parallel
+``moe_shard_map`` is not ported yet.
 
 Conventions are the reference's: parameters are plain dicts of float32
 tensors made by the matching ``init_*`` functions (from an explicit
@@ -28,11 +29,14 @@ bfloat16 product is exact in float32) summed in float32.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 Params = Dict[str, Any]
 
@@ -62,6 +66,48 @@ def init_device(gen: torch.Generator, device) -> torch.device:
     """Where ``init_*`` puts its tensors: ``device``, else the
     generator's."""
     return gen.device if device is None else torch.device(device)
+
+
+# ---------------------------------------------------------------------------
+# rematerialization
+# ---------------------------------------------------------------------------
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``dots``: keep the outputs of 2-D products (``aten.mm``: every
+    weight product, the products with no batch dimension that
+    ``checkpoint_dots_with_no_batch_dims`` keeps) and recompute the rest,
+    the attention's batched products among them."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def maybe_remat(fn: Callable, cfg, dots: bool = False) -> Callable:
+    """``fn`` under the config's ``remat`` policy, the reference's
+    ``jax.checkpoint`` of a layer: ``full`` keeps only the layer's inputs
+    and recomputes its forward in the backward; ``dots`` (where
+    ``dots``, as the reference's transformer allows it) keeps the 2-D
+    products' outputs too.  Anything else, and any call with grad off
+    (``inference_mode``, ``no_grad``: the model scope, serving), runs
+    ``fn`` as it is.  Non-tensor arguments pass through; the config and
+    other constants belong in ``fn``'s closure."""
+    if cfg.remat == "full":
+        context_fn = None
+    elif dots and cfg.remat == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _save_dots)
+    else:
+        return fn
+
+    def remat(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        if context_fn is None:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=context_fn)
+    return remat
 
 
 # ---------------------------------------------------------------------------
@@ -781,9 +827,13 @@ def ssd_chunked(x, dt, A, B, C, D, *, chunk: int = 128, init_state=None):
 
     # intra-chunk: y_q += sum_{k<=q} exp(a_cs_q - a_cs_k) (C_q·B_k) dt_k x_k
     cb = torch.einsum("bcqn,bckn->bcqk", Cf, Bf)     # [b,nc,Q,Q]
-    decay = torch.exp(a_cs[:, :, :, None, :] - a_cs[:, :, None, :, :])
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    decay = torch.where(mask[None, None, :, :, None], decay, 0.0)
+    # masked before the exp (the reference masks after it): above the
+    # diagonal the exponent is positive and overflows, and the exp's
+    # gradient there, inf · 0, is NaN; exp(-inf) = 0 keeps the values
+    seg = a_cs[:, :, :, None, :] - a_cs[:, :, None, :, :]
+    decay = torch.exp(seg.masked_fill(~mask[None, None, :, :, None],
+                                      _NEG_INF))
     w = cb[..., None] * decay                        # [b,nc,Q,Q,h]
     y_intra = torch.einsum("bcqkh,bckh,bckhp->bcqhp", w, dtf, xf)
 

@@ -4,7 +4,8 @@ The PyTorch port of ``repro.models.ssm``: the forward is linear in S
 (the chunked SSD of :func:`repro_torch.models.layers.ssd_chunked`), and
 decode is an O(1) recurrent update of a float32 state and the conv
 tails, written in place.  The blocks are stacked along a leading axis
-and run by one Python loop.
+and run by one Python loop over ``tree.unstack``, each under
+``cfg.remat == "full"`` when set, as in the reference.
 """
 from __future__ import annotations
 
@@ -46,18 +47,22 @@ def hidden(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
     """Returns (h, aux = 0, caches | None); with ``collect_state`` the
     caches are (SSD states [L,B,H,P,N], conv tails {x,B,C} [L,B,k-1,·])."""
     x = L.embed(params["embed"], batch["tokens"], L.dtype_of(cfg.dtype))
-    states, tails = [], []
-    for i in range(cfg.num_layers):
-        p = tree.index(params["blocks"], i)
+
+    def block(x, p):
         h = L.rms_norm(p["ln"], x, cfg.norm_eps)
         if collect_state:
             y, state, tail = L.mamba2_block(p["mamba"], h, cfg,
                                             return_state=True)
-            states.append(state)
-            tails.append(tail)
-        else:
-            y = L.mamba2_block(p["mamba"], h, cfg)
-        x = x + y
+            return x + y, (state, tail)
+        return x + L.mamba2_block(p["mamba"], h, cfg), None
+
+    block = L.maybe_remat(block, cfg)
+    states, tails = [], []
+    for p in tree.unstack(params["blocks"]):
+        x, caches = block(x, p)
+        if collect_state:
+            states.append(caches[0])
+            tails.append(caches[1])
     caches = (torch.stack(states), tree.stack(tails)) if collect_state \
         else None
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)

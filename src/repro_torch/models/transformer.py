@@ -7,11 +7,11 @@ stubbed vision embeddings).
 
 Layers are stacked along a leading axis (``params["blocks"]``), as the
 reference stacks them for ``lax.scan``; the forward is one Python loop
-that reads each layer as views into the stack, whatever
-``cfg.scan_layers`` says.  ``cfg.remat`` does not change a forward's
-value and is not applied here.  Serving: a KV cache [L, B, max_len, K,
-hd] padded to ``max_len``, filled by :func:`prefill` and advanced by
-:func:`decode_step` (one clock for the batch) or
+over the layers of ``tree.unstack``, whatever ``cfg.scan_layers`` says,
+each block under ``cfg.remat`` (``none``, ``full`` or ``dots``: see
+:func:`~repro_torch.models.layers.maybe_remat`).  Serving: a KV cache
+[L, B, max_len, K, hd] padded to ``max_len``, filled by :func:`prefill`
+and advanced by :func:`decode_step` (one clock for the batch) or
 :func:`decode_step_ragged` (a clock a row); both write the cache's
 tensors in place.
 """
@@ -133,10 +133,14 @@ def hidden(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
     kv (prefill): (k, v) stacked [L, B, S, K, hd].
     """
     x, positions = _embed_inputs(cfg, params, batch)
+
+    def block(x, p):
+        return _block_apply(cfg, p, x, positions, collect_kv)
+
+    block = L.maybe_remat(block, cfg, dots=True)
     auxs, ks, vs = [], [], []
-    for i in range(cfg.num_layers):
-        x, a, kv = _block_apply(cfg, tree.index(params["blocks"], i), x,
-                                positions, collect_kv)
+    for p in tree.unstack(params["blocks"]):
+        x, a, kv = block(x, p)
         auxs.append(a)
         if collect_kv:
             ks.append(kv[0])

@@ -2,8 +2,12 @@
 the JAX package's: a checkpoint written by either package loads in the
 other with equal bits (bfloat16 compared as its uint16 payload), the
 manifests agree key for key, and a flipped byte raises the checksum
-error."""
+error.  Then the manager: tests/test_checkpoint.py's manager tests
+through the port, the snapshot an async save takes before the next
+in-place step, and the preemption handler."""
 import os
+import signal
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,8 +16,9 @@ import torch
 
 from repro.checkpoint import load_checkpoint as ref_load
 from repro.checkpoint import save_checkpoint as ref_save
-from repro_torch.checkpoint import (load_checkpoint, load_manifest,
-                                    save_checkpoint)
+from repro_torch.checkpoint import (CheckpointManager, load_checkpoint,
+                                    load_manifest, save_checkpoint)
+from repro_torch.checkpoint import manager as manager_mod
 from repro_torch.checkpoint.store import _flatten
 
 
@@ -128,3 +133,139 @@ def test_restore_into_different_structure_fails(tmp_path):
     path = save_checkpoint(str(tmp_path / "ck"), port_tree())
     with pytest.raises(KeyError):
         load_checkpoint(path, {"other": torch.zeros(3)})
+
+
+# -- the manager (tests/test_checkpoint.py's manager tests) -------------
+
+def manager_tree():
+    return {"a": torch.arange(12, dtype=torch.float32).reshape(3, 4),
+            "b": {"c": torch.ones((5,), dtype=torch.bfloat16),
+                  "d": torch.tensor(3, dtype=torch.int32)}}
+
+
+def _corrupt_one_shard(path):
+    shard = [f for f in os.listdir(path) if f.endswith(".npy")][0]
+    np.save(os.path.join(path, shard),
+            np.load(os.path.join(path, shard)) + 1)
+
+
+def test_manager_keep_k_and_restore(tmp_path):
+    mgr = CheckpointManager(str(tmp_path), keep=2, save_interval=10,
+                            async_save=False)
+    t = manager_tree()
+    assert not mgr.maybe_save(5, t)
+    for step in (10, 20, 30):
+        assert mgr.maybe_save(step, t)
+    assert mgr.steps() == [20, 30]
+    restored, step = mgr.restore_or_init(t, lambda: None)
+    assert step == 30
+    _leaves_equal(restored, t)
+
+
+def test_manager_falls_through_corrupt(tmp_path):
+    mgr = CheckpointManager(str(tmp_path), keep=5, save_interval=1,
+                            async_save=False)
+    t = manager_tree()
+    mgr.maybe_save(1, t)
+    mgr.maybe_save(2, t)
+    _corrupt_one_shard(mgr.path_for(2))
+    restored, step = mgr.restore_or_init(t, lambda: None)
+    assert step == 1                      # older but valid
+    _corrupt_one_shard(mgr.path_for(1))
+    assert mgr.restore_or_init(t, lambda: "fresh") == ("fresh", 0)
+
+
+def test_async_save(tmp_path):
+    mgr = CheckpointManager(str(tmp_path), save_interval=1, async_save=True)
+    mgr.maybe_save(1, manager_tree())
+    mgr.wait()
+    assert mgr.latest_step() == 1
+    assert load_manifest(mgr.path_for(1))["step"] == 1
+
+
+def test_async_save_keeps_values_from_before_an_in_place_step(
+        tmp_path, monkeypatch):
+    """The snapshot is taken when ``maybe_save`` returns: a step that
+    writes the tensors in place right after it does not reach the
+    files, even when the writer thread runs only after that step."""
+    release = threading.Event()
+    real_save = manager_mod.save_checkpoint
+
+    def held_save(*args, **kwargs):
+        assert release.wait(timeout=30)
+        return real_save(*args, **kwargs)
+    monkeypatch.setattr(manager_mod, "save_checkpoint", held_save)
+    mgr = CheckpointManager(str(tmp_path), save_interval=1, async_save=True)
+    t = manager_tree()
+    want = _snapshot_values(t)
+    assert mgr.maybe_save(1, t)
+    with torch.no_grad():                 # the next step, in place
+        t["a"].add_(100.0)
+        t["b"]["c"].mul_(3)
+        t["b"]["d"].add_(1)
+    release.set()
+    mgr.wait()
+    out, step = load_checkpoint(mgr.path_for(1), t)
+    assert step == 1
+    _leaves_equal(out, want)
+
+
+def _snapshot_values(t):
+    return {"a": t["a"].clone(), "b": {"c": t["b"]["c"].clone(),
+                                       "d": t["b"]["d"].clone()}}
+
+
+def test_async_save_error_surfaces_in_wait(tmp_path, monkeypatch):
+    def failing(*args, **kwargs):
+        raise OSError("disk full")
+    monkeypatch.setattr(manager_mod, "save_checkpoint", failing)
+    mgr = CheckpointManager(str(tmp_path), save_interval=1, async_save=True)
+    mgr.maybe_save(1, manager_tree())
+    with pytest.raises(OSError, match="disk full"):
+        mgr.wait()
+    assert mgr.latest_step() is None
+
+
+def test_signal_handler_saves_then_exits(tmp_path):
+    mgr = CheckpointManager(str(tmp_path), save_interval=100)
+    t = manager_tree()
+    before = {s: signal.getsignal(s) for s in (signal.SIGTERM,
+                                               signal.SIGINT)}
+    try:
+        mgr.install_signal_handler(lambda: (7, t))
+        with pytest.raises(SystemExit):
+            signal.getsignal(signal.SIGTERM)(signal.SIGTERM, None)
+    finally:
+        for s, h in before.items():
+            signal.signal(s, h)
+    assert mgr.steps() == [7]
+    out, _ = load_checkpoint(mgr.path_for(7), t)
+    _leaves_equal(out, t)
+
+
+def test_manager_checkpoint_loads_in_reference(tmp_path):
+    """What the manager writes is the store's format: the reference's
+    loader reads it."""
+    mgr = CheckpointManager(str(tmp_path), save_interval=1, async_save=False)
+    mgr.maybe_save(3, manager_tree())
+    like = {"a": jnp.zeros((3, 4), jnp.float32),
+            "b": {"c": jnp.zeros((5,), jnp.bfloat16),
+                  "d": jnp.zeros((), jnp.int32)}}
+    out, step = ref_load(mgr.path_for(3), like)
+    assert step == 3
+    _leaves_equal(manager_tree(), out)
+
+
+def test_snapshot_copies_every_tensor_leaf():
+    from collections import namedtuple
+    Pair = namedtuple("Pair", "a b")
+    t = {"d": torch.ones(2), "l": [torch.ones(3)],
+         "t": (torch.ones(1), 2.5), "n": Pair(torch.ones(4), None)}
+    snap = manager_mod._snapshot(t)
+    with torch.no_grad():
+        for x in (t["d"], t["l"][0], t["t"][0], t["n"].a):
+            x.add_(1)
+    assert isinstance(snap["n"], Pair) and isinstance(snap["l"], list)
+    assert snap["t"][1] == 2.5 and snap["n"].b is None
+    for x in (snap["d"], snap["l"][0], snap["t"][0], snap["n"].a):
+        assert torch.equal(x, torch.ones_like(x))

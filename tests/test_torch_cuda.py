@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions,
+and the paths that run there: serving and training.
 
 Every test here needs an NVIDIA card and ``nvcc``; on a host without
 CUDA each one skips.  This file imports neither jax nor the JAX package,
@@ -897,3 +898,73 @@ def test_fenced_ttft_not_below_unfenced_on_the_card(cuda):
     unfenced = min(ttft(False) for _ in range(3))
     fenced = min(ttft(True) for _ in range(3))
     assert fenced >= unfenced
+
+
+# -- training on the card (the train phase's checks (b)-(d)) ------------
+
+def _train_batches(cfg, n, batch=2, seq=64, seed=0):
+    from repro_torch.data import DataConfig, SyntheticLM
+    src = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                 global_batch=batch, seed=seed))
+    return [{k: torch.from_numpy(v) for k, v in src.batch(i).items()}
+            for i in range(n)]
+
+
+def _copy_to(t, device):
+    from repro_torch.models import tree
+    return tree.map(lambda x: x.to(device, copy=True), t)
+
+
+@pytest.mark.parametrize("arch,kw", [("llama3.2-1b", {"num_layers": 2}),
+                                     ("mamba2-780m", {}),
+                                     ("deepseek-moe-16b", {})])
+def test_train_steps_on_the_card_match_the_cpu(cuda, arch, kw):
+    """Three float32 steps from one state on the same batches: the loss
+    within 1e-4 and grad_norm relative 1e-4 of the CPU's."""
+    from repro_torch.models import build, get_config
+    from repro_torch.train import AdamWConfig, make_init_fn, make_train_step
+    if torch.backends.cuda.matmul.allow_tf32:
+        pytest.fail("float32 products must not run in TF32 here")
+    cfg = get_config(arch).reduced().override(dtype="float32", **kw)
+    api = build(cfg)
+    opt = AdamWConfig(lr=1e-3, total_steps=20, warmup_steps=2)
+    state = make_init_fn(api, opt)(torch.Generator().manual_seed(0))
+    step = make_train_step(api, opt)
+    runs = {}
+    for device in (cuda, torch.device("cpu")):
+        st, runs[device.type] = _copy_to(state, device), []
+        for b in _train_batches(cfg, 3):
+            st, m = step(st, _copy_to(b, device))
+            runs[device.type].append((float(m["loss"]),
+                                      float(m["grad_norm"])))
+    for (lc, nc), (lh, nh) in zip(runs["cuda"], runs["cpu"]):
+        assert abs(lc - lh) <= 1e-4
+        assert abs(nc - nh) <= 1e-4 * nh
+
+
+def test_remat_gradients_agree_on_the_card(cuda):
+    from repro_torch.models import build, get_config, tree
+    from repro_torch.train.step import _grad_fn
+    cfg = get_config("llama3.2-1b").reduced().override(dtype="float32")
+    params = build(cfg).init(torch.Generator(device=cuda).manual_seed(1))
+    batch = _copy_to(_train_batches(cfg, 1, seq=128)[0], cuda)
+    grads = {m: _grad_fn(build(cfg.override(remat=m)))(params, batch)[1]
+             for m in ("none", "full", "dots")}
+    for m in ("full", "dots"):
+        for (_, a), (_, b) in zip(tree.leaves(grads[m]),
+                                  tree.leaves(grads["none"])):
+            assert float((a - b).abs().max()) <= 1e-6, m
+
+
+def test_resume_on_the_card(cuda, tmp_path):
+    """Halted at step 7 of 14 and resumed through the manager: the last
+    loss within the reference test's 2e-3 of the uninterrupted run's."""
+    from repro_torch.launch.train import train
+    kw = dict(steps=14, global_batch=2, seq_len=32, lr=1e-3, seed=5,
+              log_every=100, device="cuda")
+    full = train("llama3.2-1b", **kw)
+    ckpt = str(tmp_path / "ck")
+    train("llama3.2-1b", ckpt_dir=ckpt, ckpt_every=7, halt_at=7, **kw)
+    resumed = train("llama3.2-1b", ckpt_dir=ckpt, ckpt_every=7, **kw)
+    assert resumed["steps"] == 7
+    assert abs(resumed["last_loss"] - full["last_loss"]) < 2e-3
