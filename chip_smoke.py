@@ -186,10 +186,31 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      loss within ``TRAIN_BF16_TOL`` of float32's.  No hand-written
      kernel lies on this path (the reference's train step calls no
      Pallas kernel);
- 18. a ``{"host_path_us": ..., "main_path_idle": ...}`` line, a
+ 18. report: two runs, ``a`` then ``b``, of the ``REPORT_SCOPES``
+     (mxu, histo, serve) in one results directory under a temporary
+     directory (``run --meters wall,cpu,latency --slo-ms 200``), then the
+     port's ScopePlot over them, every CLI step in a child that cannot
+     import matplotlib or yaml (``sys.modules[name] = None``): ``report
+     b`` writes ``report.md`` and ``index.html``; every image it names
+     exists, parses as XML and holds a mark per series of its spec;
+     mxu, histo and serve each have times, trend and speedup plots and
+     serve its latency CDF; the System table shows the card's
+     ``device_kind`` and ``cuda_version``; the verdict table lists every
+     instance of ``b``.  ``report history`` renders; ``python -m
+     repro_torch.scopeplot batch`` finds every spec fresh and, after
+     ``b/merged.json`` is touched, renders exactly the specs that read
+     it; ``ci`` without ``--no-report`` exits as with it and leaves its
+     run's report; ``REPORT_TUNE`` tuned once with its report leaves
+     ``tune_speedup.svg``; the dashboard (``create_server`` on port 0 in
+     a thread) answers 200 to ``/``, ``/api/runs`` and ``/api/status``.
+     No kernel is launched by the report itself: the mxu and histo rows
+     it reports ran the matmul and histogram kernels;
+ 19. a ``{"host_path_us": ..., "main_path_idle": ...}`` line, a
      ``{"models": [...]}`` line (phase 8's rows), a ``{"serve": ...}``
-     line (phases 15 and 16), a ``{"train": ...}`` line (phase 17),
-     then one
+     line (phases 15 and 16), a ``{"train": ...}`` line (phase 17), a
+     ``{"report": ...}`` line (phase 18: each step's wall, the plots
+     and SVG bytes written, whether the host can import matplotlib and
+     yaml), then one
      ``{"kernels": [...]}`` line: per kernel its launches on the main
      path (with each variant's, for matmul, flash attention and SSD), its
      largest error against the plain version, and its time,
@@ -198,7 +219,7 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      instantiated tile under ``tiles``).
      ``ms`` is the time per call of back-to-back calls through the
      wrapper (CUDA events), ``device_ms`` the kernels alone (profiler);
- 19. last line: ``{"ok": true, "device": {...}}``.
+ 20. last line: ``{"ok": true, "device": {...}}``.
 
 Every comparison holds the kernel to its plain version on the same
 inputs with ``atol = rtol = tol``, ``tol`` being the reference's own
@@ -2509,6 +2530,255 @@ def phase_train(hw: dict) -> dict:
     return row
 
 
+#: The report phase: two runs of these scopes in one results directory
+#: (the mxu and histo rows launch the matmul and histogram kernels; serve
+#: carries the latency meter's counters), then the port's ScopePlot over
+#: them, each CLI step in a child that cannot import matplotlib or yaml.
+REPORT_SCOPES = ["mxu", "histo", "serve"]
+REPORT_RUN_ARGS = ["--meters", "wall,cpu,latency", "--slo-ms", "200",
+                   "--benchmark_min_time", PIPELINE_MIN_TIME]
+#: The family tuned once with its report (the quickest of TUNE_FAMILIES).
+REPORT_TUNE = TUNE_FAMILIES[2]
+#: ``python -c`` program: ``python -m <argv[1]> <argv[2:]>`` with
+#: matplotlib and yaml made unimportable before the CLI starts.
+BLOCKED_CLI = ("import runpy, sys\n"
+               "sys.modules['matplotlib'] = None\n"
+               "sys.modules['yaml'] = None\n"
+               "module = sys.argv[1]\n"
+               "sys.argv = sys.argv[1:]\n"
+               "runpy.run_module(module, run_name='__main__', "
+               "alter_sys=True)\n")
+
+
+def blocked_cli(module, *args, env_extra=None, ok=(0,)
+                ) -> subprocess.CompletedProcess:
+    """``python -m <module> <args>`` from the checkout's ``src`` in a
+    child that cannot import matplotlib or yaml; its wall on ``wall_s``."""
+    env = dict(os.environ, **(env_extra or {}), PYTHONPATH=os.pathsep.join(
+        filter(None, [os.path.join(ROOT, "src"),
+                      os.environ.get("PYTHONPATH")])))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", BLOCKED_CLI, module, *args],
+                       capture_output=True, text=True, env=env, cwd=ROOT,
+                       timeout=600)
+    r.wall_s = time.perf_counter() - t0
+    if r.returncode not in ok:
+        raise AssertionError(f"{module} {' '.join(args)} exited "
+                             f"{r.returncode}:\n{r.stderr[-3000:]}")
+    return r
+
+
+def report_images(report_dir: str) -> dict:
+    """Every image ``report.md`` names: it must exist, parse as XML and
+    hold at least one mark per series of the spec that drew it.  Returns
+    image → (marks, bytes)."""
+    import xml.etree.ElementTree as ET
+    from repro_torch.scopeplot import specyaml
+    with open(os.path.join(report_dir, "report.md")) as f:
+        md = f.read()
+    images = [line[line.index("](") + 2:-1] for line in md.splitlines()
+              if line.startswith("![")]
+    out = {}
+    for image in images:
+        path = os.path.join(report_dir, image)
+        root = ET.parse(path).getroot()
+        marks = sum(1 for e in root.iter()
+                    if "mark" in e.get("class", "").split())
+        spec_path = os.path.join(report_dir, "specs",
+                                 image[:-len(".svg")] + ".yaml")
+        with open(spec_path) as f:
+            spec, _ = specyaml.load(f.read(), spec_path)
+        if marks < len(spec["series"]):
+            raise AssertionError(f"{image}: {marks} marks for "
+                                 f"{len(spec['series'])} series")
+        out[image] = (marks, os.path.getsize(path))
+    return out
+
+
+def phase_report() -> dict:
+    """Two runs on the card, then ``report``, ``report history``,
+    ``scopeplot batch``, ``ci`` and ``tune`` with their reports, each in
+    a child that cannot import matplotlib or yaml, and the dashboard."""
+    import importlib.util
+    import threading
+    import urllib.request
+    from repro_torch.scopeplot.dashboard import create_server
+    card = torch.cuda.get_device_name(0)
+    scopes = [a for s in REPORT_SCOPES for a in ("--enable-scope", s)]
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        results = os.path.join(tmp, "results")
+        # 1. two runs, a then b
+        for run_id in ("a", "b"):
+            r = repro_torch("run", *scopes, *REPORT_RUN_ARGS,
+                            "--results-dir", results, "--run-id", run_id,
+                            "--benchmark_out", os.devnull)
+            if r.returncode != 0:
+                raise AssertionError(f"run {run_id} exited {r.returncode}:"
+                                     f"\n{r.stderr[-3000:]}")
+            walls[f"run_{run_id}"] = r.wall_s
+        merged = os.path.join(results, "b", "merged.json")
+        with open(merged) as f:
+            doc = json.load(f)
+        names = [b["name"] for b in doc["benchmarks"]]
+        errors = [b["name"] for b in doc["benchmarks"]
+                  if b.get("error_occurred")]
+        if errors or doc["context"].get("device_kind") != card:
+            raise AssertionError(f"run b: errors {errors}, context "
+                                 f"{doc['context'].get('device_kind')}")
+        # 2. the run report
+        r = blocked_cli("repro_torch", "report", "b", "--results-dir",
+                        results)
+        walls["report"] = r.wall_s
+        report_dir = os.path.join(results, "b", "report")
+        for f in ("report.md", "index.html"):
+            if not os.path.exists(os.path.join(report_dir, f)):
+                raise AssertionError(f"report wrote no {f}")
+        images = report_images(report_dir)
+        want = {f"{s}_{k}.svg" for s in REPORT_SCOPES
+                for k in ("times", "trend", "speedup")} | \
+            {"serve_latency.svg"}
+        if not want <= set(images):
+            raise AssertionError(f"report images {sorted(images)}, missing "
+                                 f"{sorted(want - set(images))}")
+        with open(os.path.join(report_dir, "report.md")) as f:
+            md = f.read()
+        system = md.split("## System", 1)[1].split("\n## ", 1)[0]
+        verdicts = md.split("## Verdicts", 1)[1].split("\n## ", 1)[0]
+        for row in (f"| device_kind | {card} |",
+                    f"| cuda_version | {torch.version.cuda} |"):
+            if row not in system:
+                raise AssertionError(f"System table lacks {row!r}:\n"
+                                     f"{system}")
+        missing = [n for n in names if f"| {n} |" not in verdicts]
+        if missing:
+            raise AssertionError(f"verdict table lacks {missing}")
+        # 3. the history report
+        r = blocked_cli("repro_torch", "report", "history", "--results-dir",
+                        results)
+        walls["report_history"] = r.wall_s
+        history_images = report_images(os.path.join(results, "report"))
+        # 4. batch: every spec fresh; after merged.json moves, exactly the
+        #    specs that read it render
+        specs = os.path.join(report_dir, "specs")
+
+        def batch():
+            r = blocked_cli("repro_torch.scopeplot", "batch", specs)
+            status = {}
+            for line in r.stdout.splitlines():
+                path, _, rest = line.partition(": ")
+                status[os.path.basename(path)] = rest.split()[0]
+            return r, status
+        r, first = batch()
+        walls["batch_fresh"] = r.wall_s
+        if set(first.values()) != {"fresh"}:
+            raise AssertionError(f"batch after report: {first}")
+        from repro_torch.scopeplot.plot import load_spec, spec_dependencies
+        readers = sorted(
+            name for name in first
+            if os.path.realpath(merged) in {
+                os.path.realpath(os.path.join(specs, d))
+                for d in spec_dependencies(load_spec(
+                    os.path.join(specs, name)))})
+        future = max(os.path.getmtime(os.path.join(report_dir, i))
+                     for i in images) + 60
+        os.utime(merged, (future, future))
+        r, second = batch()
+        walls["batch_after_touch"] = r.wall_s
+        rendered = sorted(n for n, st in second.items() if st == "rendered")
+        if not readers or rendered != readers or any(
+                st != "fresh" for n, st in second.items()
+                if n not in readers):
+            raise AssertionError(f"batch after touching merged.json: "
+                                 f"{second}, readers {readers}")
+        # 5. ci with and without --no-report; one tune with its report
+        common = [*scopes, "--results-dir", results, "--benchmark_min_time",
+                  PIPELINE_MIN_TIME]
+        ci_quiet = blocked_cli("repro_torch", "ci", *common, "--run-id",
+                               "c1", "--no-report", ok=(0, 1))
+        ci_loud = blocked_cli("repro_torch", "ci", *common, "--run-id",
+                              "c2", ok=(0, 1))
+        walls["ci_no_report"], walls["ci_report"] = (ci_quiet.wall_s,
+                                                     ci_loud.wall_s)
+        if ci_loud.returncode != ci_quiet.returncode or os.path.exists(
+                os.path.join(results, "c1", "report")) or \
+                not os.path.exists(os.path.join(results, "c2", "report",
+                                                "index.html")):
+            raise AssertionError(f"ci exits {ci_quiet.returncode} with "
+                                 f"--no-report, {ci_loud.returncode} "
+                                 f"without; reports "
+                                 f"{os.listdir(results)}")
+        ci_images = report_images(os.path.join(results, "c2", "report"))
+        family, extra = REPORT_TUNE
+        tune_results = os.path.join(tmp, "tune")
+        r = blocked_cli("repro_torch", "tune", family, "--budget", "8",
+                        "--benchmark_min_time", PIPELINE_MIN_TIME, *extra,
+                        "--results-dir", tune_results, "--run-id", "t",
+                        env_extra={tuning.DIR_ENV: os.path.join(tmp,
+                                                                "tuned")})
+        walls["tune"] = r.wall_s
+        tune_report = os.path.join(tune_results, "t", "report")
+        if f"  report:   {os.path.join(tune_report, 'index.html')}" not in \
+                r.stdout:
+            raise AssertionError(f"tune printed no report path:\n"
+                                 f"{r.stdout}")
+        tune_images = report_images(tune_report)
+        if "tune_speedup.svg" not in tune_images:
+            raise AssertionError(f"tune report images {tune_images}")
+        # 6. the dashboard
+        t0 = time.perf_counter()
+        server = create_server(results, port=0, device="cuda")
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        codes = {}
+        try:
+            host, port = server.server_address
+            for path in ("/", "/api/runs", "/api/status"):
+                with urllib.request.urlopen(f"http://{host}:{port}{path}",
+                                            timeout=30) as resp:
+                    codes[path] = resp.status
+                    body = resp.read()
+                if path == "/api/runs":
+                    runs = [x["run_id"] for x in json.loads(body)]
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        walls["dashboard"] = time.perf_counter() - t0
+        if set(codes.values()) != {200} or runs[:2] != ["a", "b"]:
+            raise AssertionError(f"dashboard answered {codes}, runs {runs}")
+    written = {**images, **{f"history/{k}": v
+                            for k, v in history_images.items()},
+               **{f"ci/{k}": v for k, v in ci_images.items()},
+               **{f"tune/{k}": v for k, v in tune_images.items()}}
+    facts = {
+        "scopes": REPORT_SCOPES, "instances": len(names),
+        "walls_s": walls,
+        "plots": len(written),
+        "svg_bytes": sum(b for _, b in written.values()),
+        "marks": {k: m for k, (m, _) in written.items()},
+        "batch_rendered_after_touch": rendered,
+        "ci_rc": {"no_report": ci_quiet.returncode,
+                  "report": ci_loud.returncode},
+        "tune_family": family, "dashboard": codes, "runs": runs,
+        "host_has": {m: importlib.util.find_spec(m) is not None
+                     for m in ("matplotlib", "yaml")},
+    }
+    log(f"report: runs a, b of {', '.join(REPORT_SCOPES)} "
+        f"({len(names)} instances) in {walls['run_a']:.1f} and "
+        f"{walls['run_b']:.1f} s; report {walls['report']:.1f} s "
+        f"({len(images)} plots), history {walls['report_history']:.1f} s, "
+        f"batch fresh {walls['batch_fresh']:.1f} s, after touching "
+        f"merged.json {len(rendered)} rendered in "
+        f"{walls['batch_after_touch']:.1f} s; ci exit "
+        f"{ci_quiet.returncode}/{ci_loud.returncode} "
+        f"({walls['ci_no_report']:.1f}/{walls['ci_report']:.1f} s); tune "
+        f"{family} {walls['tune']:.1f} s; dashboard {codes}; "
+        f"{facts['plots']} SVGs, {facts['svg_bytes']} bytes; host has "
+        f"{facts['host_has']}")
+    return facts
+
+
 def main() -> int:
     hw = phase_device()
     sass = phase_build()
@@ -2524,6 +2794,7 @@ def main() -> int:
     serve = phase_serve(hw)
     serve["scope_child"] = phase_serve_scope()
     trained = phase_train(hw)
+    report = phase_report()
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["sass"] = sass[k["name"]]
@@ -2537,6 +2808,7 @@ def main() -> int:
     print(json.dumps({"models": models}), flush=True)
     print(json.dumps({"serve": serve}), flush=True)
     print(json.dumps({"train": trained}), flush=True)
+    print(json.dumps({"report": report}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,10 +19,10 @@ collections):
      windowed run history
      (:func:`repro_torch.core.history.detect_drift`, the same pooled
      cross-run stddev ``compare`` uses);
-  5. **report** — the reference re-renders its static report here.  The
-     port has no report yet: ``--no-report`` is accepted, and without it
-     ``ci`` logs once that the report is not ported.  The gate's verdict
-     never depends on it.
+  5. **report** — re-render the run's static report
+     (:func:`repro_torch.scopeplot.report.report_main`, SVG plots) unless
+     ``--no-report``; a report that fails is logged and never changes
+     the gate's verdict or exit code.
 
 Exit codes: **0** clean (including "nothing changed"), **1** regression
 or failed instances, **2** usage error.
@@ -83,8 +83,7 @@ def build_ci_parser() -> argparse.ArgumentParser:
                     help="pooled-stddev significance bar "
                          "(default: %(default)s)")
     ap.add_argument("--no-report", action="store_true",
-                    help="skip re-rendering the static report (the port "
-                         "has none yet)")
+                    help="skip re-rendering the static report")
     return ap
 
 
@@ -177,9 +176,13 @@ def ci_main(argv: List[str],
                  "instances, or fewer than two runs in history)")
 
     if not ns.no_report and result.out_dir:
-        log.info("report for %s not rendered: the report is not yet "
-                 "ported to repro_torch (gate verdict unaffected)",
-                 result.run_id)
+        try:
+            from ..scopeplot.report import report_main
+            report_main([result.run_id, "--results-dir", ns.results_dir])
+        except Exception:  # noqa: BLE001 - the verdict must not depend
+            # on rendering; the gate already decided
+            log.warning("report rendering failed for %s (gate verdict "
+                        "unaffected)", result.run_id, exc_info=True)
 
     if failed:
         log.error("ci: %d instance(s) failed: %s", len(failed),

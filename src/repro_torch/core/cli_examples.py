@@ -63,18 +63,16 @@ EXAMPLES: Dict[str, List[Tuple[str, str]]] = {
     "ci": [
         ("per-commit gate: delta-plan against history, re-measure only "
          "fingerprint-stale instances, judge them against the pooled "
-         "window, exit 1 on regression",
-         "python -m repro_torch ci --jobs 2 --results-dir results "
-         "--no-report"),
+         "window, exit 1 on regression, then re-render the run's report",
+         "python -m repro_torch ci --jobs 2 --results-dir results"),
         ("full sweep (no delta pruning) with a stricter gate",
-         "python -m repro_torch ci --full --threshold 0.05 --window 10 "
-         "--no-report"),
-        ("gate one scope's bf16 instances",
+         "python -m repro_torch ci --full --threshold 0.05 --window 10"),
+        ("gate one scope's bf16 instances, skipping the report render",
          "python -m repro_torch ci --enable-scope mxu --param dtype=bf16 "
          "--no-report"),
         ("the same gate on the CPU",
          "python -m repro_torch ci --device cpu --enable-scope instr "
-         "--results-dir results --no-report"),
+         "--results-dir results"),
     ],
     "tune": [
         ("screen + hill-climb the matmul tile space under a 16-trial "
@@ -139,6 +137,21 @@ EXAMPLES: Dict[str, List[Tuple[str, str]]] = {
          "python -m repro_torch store status --coverage"),
         ("the same for a history of --device cpu runs",
          "python -m repro_torch store status --coverage --device cpu"),
+    ],
+    "report": [
+        ("render report/index.html + report.md (plots as SVG) for one run",
+         "python -m repro_torch report 20260731T120000-42"),
+        ("cross-run trend report over everything in history.jsonl",
+         "python -m repro_torch report history --results-dir results"),
+        ("wider drift window, custom output directory",
+         "python -m repro_torch report 20260731T120000-42 --output "
+         "/tmp/report --window 10"),
+        ("live dashboard over the result store: trend sparklines, drift "
+         "alerts, and JSON query endpoints next to the static report",
+         "python -m repro_torch report history --serve --port 8000"),
+        ("the same over a history of --device cpu runs (the coverage "
+         "panel counts the instances a CPU run registers)",
+         "python -m repro_torch report history --serve --device cpu"),
     ],
 }
 

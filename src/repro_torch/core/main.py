@@ -8,6 +8,7 @@ The port of ``repro.core.main``::
     python -m repro_torch ci [flags...]          # incremental run + drift gate
     python -m repro_torch tune <family> [...]    # autotune a kernel's tiles
     python -m repro_torch compare A.json B.json  # diff two result documents
+    python -m repro_torch report <run-id>        # HTML/Markdown run report
     python -m repro_torch query [filters...]     # filter/aggregate run history
     python -m repro_torch store <index|ingest|status>  # the result store
 
@@ -32,10 +33,12 @@ Startup follows the reference's run stage:
 
 Every run stamps the instances' fingerprints
 (:mod:`repro_torch.core.fingerprint`) on its context, so history
-records carry them, and ``--since`` turns a run into a delta run.  The
-reference's ``lint`` and ``report`` subcommands and its ``--lint`` and
-``--strict`` run flags are not ported yet: each is refused with "not yet
-ported", never ignored.  Documents of either package are read by either
+records carry them, and ``--since`` turns a run into a delta run.
+``report`` renders a run's (or the history's, or a tune's) static
+report through :mod:`repro_torch.scopeplot.report`, drawn as SVG with
+the standard library.  The reference's ``lint`` subcommand and its
+``--lint`` and ``--strict`` run flags are not ported yet: each is
+refused with "not yet ported", never ignored.  Documents of either package are read by either
 package's ``compare``.
 """
 from __future__ import annotations
@@ -64,7 +67,7 @@ from .scope import ScopeManager
 log = scope_logging.get_logger("main")
 
 #: Subcommands of ``python -m repro`` that later slices port.
-NOT_YET_PORTED_COMMANDS = ("lint", "report")
+NOT_YET_PORTED_COMMANDS = ("lint",)
 #: ``run`` flags of the reference that need the linter, which a later
 #: slice ports.
 NOT_YET_PORTED_FLAGS = ("--lint", "--strict")
@@ -86,6 +89,8 @@ commands:
             winner as the kernel's tuned.json default for that card
   compare   mean/stddev-aware diff of two result documents (either
             package's)
+  report    static HTML/Markdown report for a run, the run history or a
+            tune run (plots as SVG; --serve: the live dashboard)
   query     filter/aggregate the run history (store-indexed when
             history.db exists; output equals a direct JSONL scan)
   store     manage the SQLite result store: index (incremental),
@@ -109,6 +114,9 @@ def main(argv: Optional[List[str]] = None,
         return 2
     if argv and argv[0] == "compare":
         return compare_main(argv[1:])
+    if argv and argv[0] == "report":
+        from ..scopeplot.report import report_main
+        return report_main(argv[1:])
     if argv and argv[0] == "query":
         from ..store.cli import query_main
         return query_main(argv[1:])

@@ -26,9 +26,11 @@ no trial: it also warms the process (allocator, libraries, caches), so
 that the builtin baseline, measured next like any trial, is not the
 only one to pay a first run.  Trials override that variant only.
 ``--device`` is ``run``'s (``cuda`` by default; with no CUDA device the
-command exits 2 unless given ``--device cpu``).  The reference's tune
-report (``repro.scopeplot``) is not ported yet: ``--no-report`` is
-accepted and the summary is printed and written to ``tune.json``.
+command exits 2 unless given ``--device cpu``).  Unless
+``--no-report``, the run's report (speedup bars and the sensitivity
+table, :func:`repro_torch.scopeplot.report.generate_tune_report`) is
+rendered under ``<run-dir>/report/`` and its path printed; a report
+that fails is logged and never loses the tune.
 
 Determinism: with a fixed ``--seed`` the candidate plan is a pure
 function of the space and the measured scores; ``--costs`` reorders
@@ -124,9 +126,7 @@ def build_tune_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-artifact", action="store_true",
                     help="search + record, but do not write tuned.json")
     ap.add_argument("--no-report", action="store_true",
-                    help="skip rendering the tune report (the port "
-                         "renders none yet; accepted for the reference's "
-                         "command lines)")
+                    help="skip rendering the tune report")
     return ap
 
 
@@ -414,6 +414,14 @@ def tune_main(argv: List[str],
             tun.kernel, payload, device=device_name, variant=variant,
             path=ns.output)
 
+    report_path = None
+    if not ns.no_report:
+        from ..scopeplot.report import generate_tune_report
+        try:
+            report_path = generate_tune_report(run_dir)["html"]
+        except Exception as e:  # noqa: BLE001 - a report must not lose the tune
+            log.warning("tune report failed: %s", e)
+
     # ---- human summary ------------------------------------------------
     def _fmt(v: float) -> str:
         return f"{v:.3e}" if abs(v) < 1e-3 or abs(v) >= 1e4 else f"{v:.4f}"
@@ -433,6 +441,8 @@ def tune_main(argv: List[str],
         print(f"  sensitivity {axis}: {span:.3e}")
     if artifact_path:
         print(f"  artifact: {artifact_path}")
+    if report_path:
+        print(f"  report:   {report_path}")
     return 0
 
 

@@ -208,12 +208,31 @@ def test_ci_gate_clean_then_regression(scope_file, tmp_path, capsys):
     assert beta[0]["mean_s"] == pytest.approx(0.2)
 
 
-def test_ci_without_no_report_still_gates(scope_file, tmp_path, capsys):
-    """The report is not ported: ci says so and its verdict stands."""
+def test_ci_without_no_report_still_gates(scope_file, tmp_path, capsys,
+                                         monkeypatch):
+    """Without --no-report ci renders the run's report after the gate; a
+    report that raises is logged and leaves the gate's exit code as it
+    was, clean or failed."""
     d = str(tmp_path / "results")
     assert cli(ci_main, ["--results-dir", d, "--run-id", "r",
                          *FAST_FLAGS]) == 0
     assert "ci: ok — 2 measured, 0 cached" in capsys.readouterr().out
+    report = os.path.join(d, "r", "report")
+    assert os.path.exists(os.path.join(report, "index.html"))
+    assert os.path.exists(os.path.join(report, "tmpci_times.svg"))
+
+    import repro_torch.scopeplot.report as port_report
+
+    def boom(argv):
+        raise RuntimeError("report broke")
+    monkeypatch.setattr(port_report, "report_main", boom)
+    assert cli(ci_main, ["--results-dir", d, "--run-id", "r2", "--full",
+                         *FAST_FLAGS]) == 0
+    assert "ci: ok — 2 measured, 0 cached" in capsys.readouterr().out
+    assert not os.path.exists(os.path.join(d, "r2", "report"))
+    rewrite(scope_file, beta_time=BETA_SLOW)
+    assert cli(ci_main, ["--results-dir", d, "--run-id", "r3",
+                         *FAST_FLAGS]) == 1
 
 
 def test_ci_usage_errors(scope_file, tmp_path):

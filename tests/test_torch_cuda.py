@@ -968,3 +968,56 @@ def test_resume_on_the_card(cuda, tmp_path):
     resumed = train("llama3.2-1b", ckpt_dir=ckpt, ckpt_every=7, **kw)
     assert resumed["steps"] == 7
     assert abs(resumed["last_loss"] - full["last_loss"]) < 2e-3
+
+
+# -- the report over a card run ---------------------------------------------
+
+def test_report_over_a_card_run_names_the_card(cuda, tmp_path):
+    """``python -m repro_torch run`` of the mxu scope on the card, then
+    ``report`` in a process that cannot import matplotlib or PyYAML: the
+    System table names the card and its CUDA version, every image the
+    report names is an SVG with marks, and every instance has its
+    verdict row."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import xml.etree.ElementTree as ET
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [os.path.join(root, "src"),
+                      os.environ.get("PYTHONPATH")])))
+    results = str(tmp_path / "results")
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch", "run", "--enable-scope", "mxu",
+         "--benchmark_min_time", "0.01", "--results-dir", results,
+         "--run-id", "card", "--benchmark_out", os.devnull],
+        capture_output=True, text=True, env=env, cwd=root, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    blocked = ("import runpy, sys\n"
+               "sys.modules['matplotlib'] = None\n"
+               "sys.modules['yaml'] = None\n"
+               "sys.argv = ['repro_torch', *sys.argv[1:]]\n"
+               "runpy.run_module('repro_torch', run_name='__main__',"
+               " alter_sys=True)\n")
+    r = subprocess.run([sys.executable, "-c", blocked, "report", "card",
+                        "--results-dir", results], capture_output=True,
+                       text=True, env=env, cwd=root, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    report = tmp_path / "results" / "card" / "report"
+    md = (report / "report.md").read_text()
+    card = torch.cuda.get_device_name(0)
+    assert f"| device_kind | {card} |" in md
+    assert f"| cuda_version | {torch.version.cuda} |" in md
+    assert "| backend | cuda |" in md
+    doc = json.loads((tmp_path / "results" / "card" /
+                      "merged.json").read_text())
+    for rec in doc["benchmarks"]:
+        assert f"| {rec['name']} |" in md
+    images = [line[line.index("(") + 1:-1] for line in md.splitlines()
+              if line.startswith("![")]
+    assert "mxu_times.svg" in images
+    for image in images:
+        marks = [e for e in ET.parse(str(report / image)).getroot().iter()
+                 if "mark" in e.get("class", "").split()]
+        assert marks, image

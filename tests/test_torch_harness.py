@@ -222,8 +222,19 @@ def test_bridge_carries_numpy_and_bfloat16():
 @pytest.mark.parametrize("argv", [
     ["run", "--strict"], ["run", "--lint"], ["lint"], ["report", "x"],
 ])
-def test_unported_surface_is_refused(argv):
-    assert port_main.main(argv) == 2
+def test_unported_surface_is_refused(argv, tmp_path, capsys):
+    if argv[0] != "report":
+        assert port_main.main(argv) == 2
+        return
+    # report is ported: on a missing run it exits as the reference's
+    # report_main does (2, naming the run directory it looked for)
+    from repro.scopeplot.report import report_main as ref_report_main
+    args = [*argv, "--results-dir", str(tmp_path)]
+    assert port_main.main(args) == 2
+    port_err = capsys.readouterr().err
+    assert ref_report_main(args[1:]) == 2
+    assert port_err == capsys.readouterr().err
+    assert f"no run directory {tmp_path / 'x'}" in port_err
 
 
 def test_example_scope_document_pairs_with_reference(tmp_path):
