@@ -205,12 +205,34 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      a thread) answers 200 to ``/``, ``/api/runs`` and ``/api/status``.
      No kernel is launched by the report itself: the mxu and histo rows
      it reports ran the matmul and histogram kernels;
- 19. a ``{"host_path_us": ..., "main_path_idle": ...}`` line, a
+ 19. lint: ``python -m repro_torch lint --strict --format json --device
+     cuda`` over the ten scopes in a child must exit 0 with no error or
+     warning, its only findings the SCOPE203 infos of the two families
+     whose fixtures do not follow ``(callable, *operands)``; every
+     family's first fixture is then built on the card and traced by the
+     trace tier in this process, with the kernels' launch counts held at
+     0 (the trace runs on fake tensors), counting the ``repro_torch``
+     kernel nodes; ``run --lint --strict`` over ``LINT_RUN_SCOPES`` (mxu,
+     histo, nn, linalg) in this process, with the counts set to 0 just
+     before and read just after, must exit 0 with every record free of
+     error and all five kernels launched; a planted scope whose one
+     family traces to no compute on its operand (SCOPE201) makes ``run
+     --lint`` exit 1 and write nothing; the paper's harness (``python -m
+     repro_torch.benchmarks.run``) over the ten scopes in a child must
+     exit 0 with no failed scope and the Fig. 3 SVG; ``serve_demo`` of
+     llama3.2-1b at its published width and depth (``reduced=False``)
+     must finish its 16 requests of 16 tokens; and each of the four
+     examples (``python -m repro_torch.examples.<name> --device cuda``,
+     their defaults: train_lm trains 300 steps) must exit 0.  One
+     ``{"lint": ...}`` line holds each step's exit code and wall, the
+     findings by severity, the families traced and kernel nodes seen,
+     the launches, the harness's lines and ``serve_demo``'s stats;
+ 20. a ``{"host_path_us": ..., "main_path_idle": ...}`` line, a
      ``{"models": [...]}`` line (phase 8's rows), a ``{"serve": ...}``
      line (phases 15 and 16), a ``{"train": ...}`` line (phase 17), a
      ``{"report": ...}`` line (phase 18: each step's wall, the plots
      and SVG bytes written, whether the host can import matplotlib and
-     yaml), then one
+     yaml), the ``{"lint": ...}`` line (phase 19), then one
      ``{"kernels": [...]}`` line: per kernel its launches on the main
      path (with each variant's, for matmul, flash attention and SSD), its
      largest error against the plain version, and its time,
@@ -219,7 +241,7 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      instantiated tile under ``tiles``).
      ``ms`` is the time per call of back-to-back calls through the
      wrapper (CUDA events), ``device_ms`` the kernels alone (profiler);
- 20. last line: ``{"ok": true, "device": {...}}``.
+ 21. last line: ``{"ok": true, "device": {...}}``.
 
 Every comparison holds the kernel to its plain version on the same
 inputs with ``atol = rtol = tol``, ``tol`` being the reference's own
@@ -227,6 +249,7 @@ inputs with ``atol = rtol = tol``, ``tol`` being the reference's own
 of magnitude above 4 rounds one ulp (over 2e-2) away when the float32
 sums differ in their last bit.
 """
+import contextlib
 import glob
 import itertools
 import json
@@ -2779,6 +2802,237 @@ def phase_report() -> dict:
     return facts
 
 
+#: Phase 19: the scopes ``run --lint --strict`` drives (all five kernels).
+LINT_RUN_SCOPES = ["mxu", "histo", "nn", "linalg"]
+#: The families whose fixtures do not follow ``(callable, *operands)``:
+#: their SCOPE203 infos are the only findings the lint may report.
+LINT_OPAQUE = {"example/axpy", "serve/under_load"}
+#: The examples, each run with its defaults (train_lm: 300 steps).
+EXAMPLES = ["quickstart", "characterize", "serve_lm", "train_lm"]
+#: A scope whose one family the trace tier refuses (SCOPE201): its
+#: callable sums a constant, whatever its operand.
+PLANTED = "chip_smoke_planted_scope"
+
+
+@contextlib.contextmanager
+def fresh_cli_state():
+    """The process-global flags, hooks and registry as a new process has
+    them (core flags only, no scope), restored afterwards: an in-process
+    CLI call after the main path's loads every scope again."""
+    from repro_torch.core.flags import FLAGS
+    from repro_torch.core.hooks import HOOKS
+    from repro_torch.core.registry import REGISTRY
+    saved = (dict(FLAGS._specs), dict(FLAGS._values),
+             list(HOOKS._pre_parse), list(HOOKS._post_parse),
+             dict(REGISTRY._benchmarks))
+    for name in [n for n, spec in FLAGS._specs.items()
+                 if spec.owner != "core"]:
+        del FLAGS._specs[name]
+        FLAGS._values.pop(name, None)
+    HOOKS._pre_parse[:] = [h for h in HOOKS._pre_parse if h[0] == "core"]
+    HOOKS._post_parse[:] = [h for h in HOOKS._post_parse if h[0] == "core"]
+    REGISTRY._benchmarks.clear()
+    try:
+        yield
+    finally:
+        FLAGS._specs.clear(), FLAGS._specs.update(saved[0])
+        FLAGS._values.clear(), FLAGS._values.update(saved[1])
+        HOOKS._pre_parse[:], HOOKS._post_parse[:] = saved[2], saved[3]
+        REGISTRY._benchmarks.clear(), REGISTRY._benchmarks.update(saved[4])
+
+
+def python_module(module, *args, cwd, env_extra=None
+                  ) -> subprocess.CompletedProcess:
+    """``python -m <module> <args>`` from the checkout's ``src`` in a
+    child working in ``cwd``; its wall on ``wall_s``."""
+    env = dict(os.environ, **(env_extra or {}), PYTHONPATH=os.pathsep.join(
+        filter(None, [os.path.join(ROOT, "src"),
+                      os.environ.get("PYTHONPATH")])))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", module, *args],
+                       capture_output=True, text=True, env=env, cwd=cwd,
+                       timeout=600)
+    r.wall_s = time.perf_counter() - t0
+    return r
+
+
+def zero_launches() -> None:
+    for ops in KERNEL_OPS.values():
+        ops.launches = 0
+
+
+def planted_scope() -> str:
+    """A scope module holding the SCOPE201 family, in ``sys.modules``."""
+    import types
+    from repro_torch.core import Scope, State, benchmark
+
+    def register(registry):
+        @benchmark(scope="planted", registry=registry)
+        def folded(state: State):
+            fn, x = state.fixture
+            while state.keep_running():
+                state.deliver(fn(x))
+            state.set_items_processed(state.params.n)
+        folded.param_space(n=[1 << 20])
+        folded.set_fixture(lambda params: (
+            lambda x: torch.ones(4, device=x.device).sum(),
+            torch.ones(params.n, device="cuda")))
+    mod = types.ModuleType(PLANTED)
+    mod.SCOPE = Scope(name="planted", register=register)
+    sys.modules[PLANTED] = mod
+    return PLANTED
+
+
+def traced_families() -> dict:
+    """Every family's first fixture built on the card and traced by the
+    lint's trace tier, in this process: the families traced, the
+    ``repro_torch`` kernel nodes their graphs hold, and the launches
+    the traces made (none: fake tensors)."""
+    from repro_torch.core.flags import FlagRegistry
+    from repro_torch.core.hooks import HookChain
+    from repro_torch.core.lint import compile_workload
+    from repro_torch.core.registry import BenchmarkRegistry
+    from repro_torch.core.scope import ScopeManager
+    mgr = ScopeManager(registry=BenchmarkRegistry(), flags=FlagRegistry(),
+                       hooks=HookChain())
+    mgr.load()
+    mgr.register_all()
+    zero_launches()
+    traced, nodes, untraced = 0, {}, []
+    for bench in mgr.registry.all():
+        out = compile_workload(bench)
+        if out is None:
+            continue
+        if not out.analyzed():
+            untraced.append(bench.name)
+            continue
+        traced += 1
+        for op in out.kernel_ops:
+            nodes[op] = nodes.get(op, 0) + 1
+    torch.cuda.synchronize()
+    launched = {name: ops.launches for name, ops in KERNEL_OPS.items()}
+    if any(launched.values()):
+        raise AssertionError(f"the trace tier launched kernels: {launched}")
+    if set(untraced) != LINT_OPAQUE:
+        raise AssertionError(f"families not traced: {untraced}")
+    return {"families_traced": traced, "kernel_nodes": nodes,
+            "untraced": untraced}
+
+
+def phase_lint() -> dict:
+    """Phase 19: ``lint`` over the ten scopes with the trace tier on, the
+    ``run --lint --strict`` pre-flight over the kernels' scopes, a planted
+    SCOPE201 family refused, the paper's harness, ``serve_demo`` at full
+    width and the four examples, each on the card."""
+    from repro_torch.core.main import main
+    from repro_torch.launch.serve import serve_demo
+    row = {}
+    t_phase = time.perf_counter()
+    # (a) the linter, in a child, as a user runs it
+    r = repro_torch("lint", "--strict", "--format", "json",
+                    "--device", "cuda")
+    if r.returncode != 0:
+        raise AssertionError(f"lint exited {r.returncode}:\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    doc = json.loads(r.stdout)
+    infos = {(f["rule"], f["family"]) for f in doc["findings"]}
+    if doc["counts"]["error"] or doc["counts"]["warning"] or \
+            infos != {("SCOPE203", f) for f in LINT_OPAQUE} or \
+            doc["scopes_checked"] != 10 or "SCOPE201" not in doc["rules_run"]:
+        raise AssertionError(f"lint: {doc}")
+    row["lint"] = {"rc": r.returncode, "wall_s": r.wall_s,
+                   "counts": doc["counts"],
+                   "families_checked": doc["families_checked"],
+                   "scopes_checked": doc["scopes_checked"],
+                   **traced_families()}
+    log(f"lint: exit 0 in {r.wall_s:.1f} s, {doc['families_checked']} "
+        f"families, counts {doc['counts']}; traced "
+        f"{row['lint']['families_traced']}, kernel nodes "
+        f"{row['lint']['kernel_nodes']}")
+    # (b) the pre-flight, then the run: every kernel must launch
+    scopes = [a for s in LINT_RUN_SCOPES for a in ("--enable-scope", s)]
+    with tempfile.TemporaryDirectory() as tmp, fresh_cli_state():
+        out = os.path.join(tmp, "run.json")
+        zero_launches()
+        t0 = time.perf_counter()
+        rc = main(["run", "--lint", "--strict", *scopes,
+                   "--benchmark_min_time", "0.02", "--results-dir", "",
+                   "--benchmark_out", out])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: ops.launches for name, ops in KERNEL_OPS.items()}
+        with open(out) as f:
+            records = json.load(f)["benchmarks"]
+    if rc != 0 or not all(launches.values()) or \
+            any(rec.get("error_occurred") for rec in records):
+        raise AssertionError(f"run --lint --strict exited {rc}, launches "
+                             f"{launches}")
+    row["run_lint_strict"] = {"rc": rc, "wall_s": wall,
+                              "records": len(records),
+                              "launches": launches}
+    log(f"run --lint --strict over {', '.join(LINT_RUN_SCOPES)}: exit 0 "
+        f"in {wall:.1f} s, {len(records)} records, launches {launches}")
+    # (c) the planted family: refused before anything runs or persists
+    with tempfile.TemporaryDirectory() as tmp, fresh_cli_state():
+        results = os.path.join(tmp, "results")
+        zero_launches()
+        t0 = time.perf_counter()
+        rc = main(["run", "--lint", "--results-dir", results],
+                  scope_modules=[planted_scope()])
+        wall = time.perf_counter() - t0
+        sys.modules.pop(PLANTED)
+        written = os.path.exists(results)
+    if rc != 1 or written:
+        raise AssertionError(f"planted SCOPE201 family: run --lint exited "
+                             f"{rc}, results written: {written}")
+    row["planted"] = {"rc": rc, "wall_s": wall, "results_written": written}
+    log(f"planted SCOPE201 family: run --lint exit {rc} in {wall:.2f} s, "
+        f"nothing written")
+    # (d) the paper's harness over the ten scopes
+    with tempfile.TemporaryDirectory() as tmp:
+        r = python_module("repro_torch.benchmarks.run", cwd=tmp)
+        lines = r.stdout.splitlines()
+        failed = [line for line in lines if "/SCOPE_FAILED," in line]
+        fig = os.path.join(tmp, "results", "fig3_saxpy.svg")
+        if r.returncode != 0 or failed or not os.path.exists(fig):
+            raise AssertionError(f"harness exited {r.returncode}, failed "
+                                 f"scopes {failed}:\n{r.stderr[-3000:]}")
+    rows = [line for line in lines if "," in line]
+    row["harness"] = {"rc": r.returncode, "wall_s": r.wall_s,
+                      "lines": len(rows),
+                      "scopes": sorted({line.split(",")[0].split("/")[0]
+                                        for line in rows})}
+    log(f"harness: exit 0 in {r.wall_s:.1f} s, {len(rows)} lines, no "
+        f"failed scope, fig3 written")
+    # (e) serve_demo at full width
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stats = serve_demo("llama3.2-1b", reduced=False, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if stats["requests"] != 16 or stats["tokens"] != 16 * 16:
+        raise AssertionError(f"serve_demo: {stats}")
+    row["serve_demo"] = {"wall_s": wall, **stats}
+    torch.cuda.empty_cache()
+    log(f"serve_demo llama3.2-1b full width: {stats} in {wall:.1f} s")
+    # (f) the four examples
+    row["examples"] = {}
+    for name in EXAMPLES:
+        with tempfile.TemporaryDirectory() as tmp:
+            r = python_module(f"repro_torch.examples.{name}", "--device",
+                              "cuda", cwd=tmp, env_extra={"TMPDIR": tmp})
+        if r.returncode != 0:
+            raise AssertionError(f"example {name} exited {r.returncode}:"
+                                 f"\n{r.stderr[-3000:]}")
+        row["examples"][name] = {"rc": r.returncode, "wall_s": r.wall_s,
+                                 "last_line": r.stdout.strip()
+                                 .splitlines()[-1][:200]}
+        log(f"example {name}: exit 0 in {r.wall_s:.1f} s: "
+            f"{row['examples'][name]['last_line']}")
+    row["phase_s"] = time.perf_counter() - t_phase
+    log(f"lint phase: {row['phase_s']:.1f} s")
+    return row
+
 def main() -> int:
     hw = phase_device()
     sass = phase_build()
@@ -2795,6 +3049,7 @@ def main() -> int:
     serve["scope_child"] = phase_serve_scope()
     trained = phase_train(hw)
     report = phase_report()
+    linted = phase_lint()
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["sass"] = sass[k["name"]]
@@ -2809,6 +3064,7 @@ def main() -> int:
     print(json.dumps({"serve": serve}), flush=True)
     print(json.dumps({"train": trained}), flush=True)
     print(json.dumps({"report": report}), flush=True)
+    print(json.dumps({"lint": linted}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,6 +40,9 @@ EXAMPLES: Dict[str, List[Tuple[str, str]]] = {
          "--baseline results/history.jsonl"),
         ("store this run as the baseline for later gating",
          "python -m repro_torch run --save-baseline results/baseline.json"),
+        ("lint pre-flight: abort before anything is timed if a family "
+         "provably mismeasures",
+         "python -m repro_torch run --lint --strict --jobs 2"),
         ("delta run: skip instances whose fingerprint (body/fixture/"
          "kernel source, params, tuned artifact, torch/CUDA/nvcc version) "
          "already has a measured record; replay them as cached",
@@ -94,6 +97,23 @@ EXAMPLES: Dict[str, List[Tuple[str, str]]] = {
          "python -m repro_torch tune nn/rmsnorm --strategy screening"),
         ("list every family that declares a tunable kernel space",
          "python -m repro_torch tune --list"),
+    ],
+    "lint": [
+        ("static-analyze every enabled scope (AST + trace + registry "
+         "tiers); exit 1 on error-severity findings",
+         "python -m repro_torch lint"),
+        ("the same on a host with no card: fixtures build on the CPU",
+         "python -m repro_torch lint --device cpu"),
+        ("lint one scope, failing on warnings too",
+         "python -m repro_torch lint --scope example --strict"),
+        ("machine-readable findings for CI",
+         "python -m repro_torch lint --format json --strict"),
+        ("fast editor loop: AST/registry tiers only, one family",
+         "python -m repro_torch lint --no-compile --family example/saxpy"),
+        ("run a single rule across every scope",
+         "python -m repro_torch lint --rules SCOPE201"),
+        ("print the rule catalog",
+         "python -m repro_torch lint --list-rules"),
     ],
     "compare": [
         ("mean/stddev-aware diff of two runs (exit 1 on regression)",

@@ -6,6 +6,7 @@ The port of ``repro.core.main``::
     python -m repro_torch [run] [flags...]       # run benchmarks (default)
     python -m repro_torch plan [flags...]        # print the work plan + costs
     python -m repro_torch ci [flags...]          # incremental run + drift gate
+    python -m repro_torch lint [flags...]        # static-analyze the families
     python -m repro_torch tune <family> [...]    # autotune a kernel's tiles
     python -m repro_torch compare A.json B.json  # diff two result documents
     python -m repro_torch report <run-id>        # HTML/Markdown run report
@@ -36,10 +37,10 @@ Every run stamps the instances' fingerprints
 records carry them, and ``--since`` turns a run into a delta run.
 ``report`` renders a run's (or the history's, or a tune's) static
 report through :mod:`repro_torch.scopeplot.report`, drawn as SVG with
-the standard library.  The reference's ``lint`` subcommand and its
-``--lint`` and ``--strict`` run flags are not ported yet: each is
-refused with "not yet ported", never ignored.  Documents of either package are read by either
-package's ``compare``.
+the standard library.  ``lint`` (and ``run --lint [--strict]``, its
+pre-flight) analyzes the families through
+:mod:`repro_torch.core.lint` without running a body.  Documents of
+either package are read by either package's ``compare``.
 """
 from __future__ import annotations
 
@@ -66,11 +67,11 @@ from .scope import ScopeManager
 
 log = scope_logging.get_logger("main")
 
-#: Subcommands of ``python -m repro`` that later slices port.
-NOT_YET_PORTED_COMMANDS = ("lint",)
-#: ``run`` flags of the reference that need the linter, which a later
-#: slice ports.
-NOT_YET_PORTED_FLAGS = ("--lint", "--strict")
+#: Subcommands of ``python -m repro`` that later slices port (none
+#: left).
+NOT_YET_PORTED_COMMANDS: Tuple[str, ...] = ()
+#: ``run`` flags of the reference that later slices port (none left).
+NOT_YET_PORTED_FLAGS: Tuple[str, ...] = ()
 
 _OVERVIEW = """\
 usage: python -m repro_torch [COMMAND] [flags...]
@@ -84,7 +85,10 @@ commands:
   plan      print the work plan with predicted costs and worker bins
   ci        continuous-benchmarking entrypoint: delta-plan against the
             run history (only fingerprint-stale instances re-measure),
-            run, gate against windowed drift — exit 1 on regression
+            run, gate against windowed drift, report — exit 1 on
+            regression
+  lint      static-analyze benchmark families for measurement-corrupting
+            bugs (nothing runs, nothing is timed)
   tune      search a tunable family's kernel tile space and write the
             winner as the kernel's tuned.json default for that card
   compare   mean/stddev-aware diff of two result documents (either
@@ -128,6 +132,9 @@ def main(argv: Optional[List[str]] = None,
     if argv and argv[0] == "ci":
         from .ci import ci_main
         return ci_main(argv[1:], scope_modules)
+    if argv and argv[0] == "lint":
+        from .lint import lint_main
+        return lint_main(argv[1:], scope_modules)
     if argv and argv[0] == "tune":
         from .tune import tune_main
         return tune_main(argv[1:], scope_modules)
@@ -219,6 +226,14 @@ def build_run_parser() -> argparse.ArgumentParser:
                           "the mean/median/stddev aggregate records "
                           "(throughput, compile time and meter counters "
                           "are carried onto them)")
+    sel.add_argument("--lint", action="store_true",
+                     help="static-analyze the selected families before "
+                          "running (python -m repro_torch lint): "
+                          "error-severity findings abort the run before "
+                          "anything is timed")
+    sel.add_argument("--strict", action="store_true",
+                     help="with --lint, abort on warning-severity "
+                          "findings too")
     sel.add_argument("--jobs", type=int, default=1,
                      help="run work in N parallel isolated workers (on "
                           "the card they share it, and their times "
@@ -387,6 +402,21 @@ def run_main(argv: List[str],
     device = FLAGS.get("device")
     if _no_card_for(device):
         return 2
+    if sel_ns.lint:
+        # pre-flight: a family the linter can prove mismeasures must not
+        # burn a run.  Same rules as `python -m repro_torch lint`;
+        # findings go to stderr so the GB-JSON stream on stdout stays
+        # parseable.
+        from .lint import run_lint
+        report = run_lint(benches, scope_names=sorted(
+            {b.scope for b in benches}))
+        if report.findings:
+            print(report.format_text(), file=sys.stderr)
+        if report.failed(sel_ns.strict):
+            log.error("lint pre-flight failed (%s); nothing was run",
+                      report.summary())
+            return 1
+        log.info("lint pre-flight clean: %s", report.summary())
     # don't dispatch workers for scopes the filter selects nothing from —
     # each would pay a fresh interpreter and a torch import for 0 records
     matched = {b.scope for b in benches}

@@ -84,6 +84,16 @@ def _sms(device: torch.device) -> int:
     return _build.multiprocessors(_index(device))
 
 
+def _address(t: torch.Tensor) -> int:
+    """``t``'s data address for the variant's alignment test.  A tensor
+    with no storage (a fake one, as a ``make_fx`` trace holds) gives its
+    offset's bytes: the caching allocator starts every block aligned."""
+    from torch._subclasses.fake_tensor import is_fake
+    if is_fake(t):
+        return t.storage_offset() * t.element_size()
+    return t.data_ptr()
+
+
 def resolve_tile(x: torch.Tensor, y: torch.Tensor, bm: Optional[int] = None,
                  bn: Optional[int] = None, bk: Optional[int] = None
                  ) -> Tuple[str, str, Dict[str, int]]:
@@ -92,7 +102,7 @@ def resolve_tile(x: torch.Tensor, y: torch.Tensor, bm: Optional[int] = None,
     and validated against :data:`TILES` and, on the card, the device's
     shared memory; raises ``ValueError`` for a tile outside the set."""
     (M, K), N = x.shape, y.shape[1]
-    which = variant(M, K, N, x.dtype, x.data_ptr(), y.data_ptr())
+    which = variant(M, K, N, x.dtype, _address(x), _address(y))
     named = bm is not None or bn is not None or bk is not None
     key = (which, x.get_device(), M, N)
     if not named:

@@ -9,9 +9,9 @@ all float32 (jax runs with x64 off):
   * ``matmul_rect`` is the rectangular 512×256×256 float32 product
     through the hand-written kernel of :mod:`repro_torch.kernels.matmul`
     (its ``simt`` variant: float32 stays on the CUDA cores).  The family
-    has no backend axis, so under ``--device cpu`` its one point is left
-    out, as the mxu scope leaves out its ``cuda`` rows: a CPU document
-    never holds a row that ran no CUDA kernel;
+    has no backend axis, so under ``--device cpu`` it is not registered,
+    as the nn scope's card-only families are not: a CPU document never
+    holds a row that ran no CUDA kernel;
   * ``cholesky`` (``torch.linalg.cholesky``) and ``triangular_solve``
     (``torch.linalg.solve_triangular``, lower, 16 right-hand sides) stay
     legacy int sweeps.
@@ -64,30 +64,34 @@ def _register(registry: BenchmarkRegistry) -> None:
         ParamSpace.product(dtype=["f32", "bf16"], b=[8], n=[128, 256]))
     batched_matmul.set_fixture(batched_matmul_setup)
 
-    def matmul_rect_setup(params):
-        x = torch.ones((params.m, params.k), dtype=torch.float32,
-                       device=_device())
-        y = torch.ones((params.k, params.n), dtype=torch.float32,
-                       device=_device())
-        return cuda_matmul, x, y
+    # the family has no backend axis: on the CPU it is not registered,
+    # as the nn scope's card-only families are not, so that no family
+    # expands to zero instances there
+    if FLAGS.get("device") == "cuda":
+        def matmul_rect_setup(params):
+            x = torch.ones((params.m, params.k), dtype=torch.float32,
+                           device=_device())
+            y = torch.ones((params.k, params.n), dtype=torch.float32,
+                           device=_device())
+            return cuda_matmul, x, y
 
-    @benchmark(scope=NAME, registry=registry)
-    def matmul_rect(state: State):
-        """Rectangular matmul through the hand-written CUDA kernel — the
-        non-square shape the MXU scope's square sweep never exercises."""
-        fn, x, y = state.fixture
-        while state.keep_running():
-            state.deliver(fn(x, y))
-        p = state.params
-        state.counters["flops"] = 2.0 * p.m * p.n * p.k
-    on_card = FLAGS.get("device") == "cuda"
-    matmul_rect.param_space(
-        ParamSpace.product(m=[512], n=[256], k=[256])
-        .where(lambda p: on_card))
-    matmul_rect.set_fixture(matmul_rect_setup)
-    # the float32 product runs matmul's simt variant: its instantiated
-    # tiles (the reference searched Pallas blocks up to 512)
-    matmul_rect.set_tunable("matmul", bm=[64, 128], bn=[64, 128], bk=[16])
+        @benchmark(scope=NAME, registry=registry)
+        def matmul_rect(state: State):
+            """Rectangular matmul through the hand-written CUDA kernel —
+            the non-square shape the MXU scope's square sweep never
+            exercises."""
+            fn, x, y = state.fixture
+            while state.keep_running():
+                state.deliver(fn(x, y))
+            p = state.params
+            state.counters["flops"] = 2.0 * p.m * p.n * p.k
+        matmul_rect.param_space(
+            ParamSpace.product(m=[512], n=[256], k=[256]))
+        matmul_rect.set_fixture(matmul_rect_setup)
+        # the float32 product runs matmul's simt variant: its instantiated
+        # tiles (the reference searched Pallas blocks up to 512)
+        matmul_rect.set_tunable("matmul", bm=[64, 128], bn=[64, 128],
+                                bk=[16])
 
     def cholesky_setup(params):
         a = torch.eye(params.n, device=_device()) * 4.0 + 0.1

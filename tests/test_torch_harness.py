@@ -219,12 +219,51 @@ def test_bridge_carries_numpy_and_bfloat16():
 
 # -- the CLI ----------------------------------------------------------------
 
+@pytest.fixture
+def fresh_cli(monkeypatch):
+    """The process-global flags, hooks and registry as a new process has
+    them (core flags only), restored afterwards."""
+    from repro_torch.core.flags import FLAGS
+    from repro_torch.core.hooks import HOOKS
+    from repro_torch.core.registry import REGISTRY
+    saved = (dict(FLAGS._specs), dict(FLAGS._values),
+             list(HOOKS._pre_parse), list(HOOKS._post_parse),
+             dict(REGISTRY._benchmarks))
+    for name in [n for n, spec in FLAGS._specs.items()
+                 if spec.owner != "core"]:
+        del FLAGS._specs[name]
+        FLAGS._values.pop(name, None)
+    HOOKS._pre_parse[:] = [h for h in HOOKS._pre_parse if h[0] == "core"]
+    HOOKS._post_parse[:] = [h for h in HOOKS._post_parse if h[0] == "core"]
+    REGISTRY._benchmarks.clear()
+    yield
+    FLAGS._specs.clear(), FLAGS._specs.update(saved[0])
+    FLAGS._values.clear(), FLAGS._values.update(saved[1])
+    HOOKS._pre_parse[:], HOOKS._post_parse[:] = saved[2], saved[3]
+    REGISTRY._benchmarks.clear(), REGISTRY._benchmarks.update(saved[4])
+
+
 @pytest.mark.parametrize("argv", [
     ["run", "--strict"], ["run", "--lint"], ["lint"], ["report", "x"],
 ])
-def test_unported_surface_is_refused(argv, tmp_path, capsys):
+def test_unported_surface_is_refused(argv, tmp_path, capsys, monkeypatch,
+                                     fresh_cli):
+    """Nothing of the reference's CLI is refused as unported any more
+    (``lint``, ``--lint`` and ``--strict`` since the linter's slice): on
+    a host with no card ``run --lint``/``--strict`` and ``lint`` refuse
+    to carry on on the CPU, exit 2, as ``run`` does, and run with
+    ``--device cpu``; ``report`` on a missing run exits as the
+    reference's does."""
     if argv[0] != "report":
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        assert port_main.NOT_YET_PORTED_COMMANDS == () and \
+            port_main.NOT_YET_PORTED_FLAGS == ()
         assert port_main.main(argv) == 2
+        scope = (["--scope", "example"] if argv[0] == "lint" else
+                 ["--enable-scope", "example", "--results-dir", "",
+                  "--benchmark_min_time", "0.001", "--benchmark_out",
+                  str(tmp_path / "out.json")])
+        assert port_main.main([*argv, "--device", "cpu", *scope]) == 0
         return
     # report is ported: on a missing run it exits as the reference's
     # report_main does (2, naming the run directory it looked for)

@@ -294,13 +294,15 @@ def test_plan_cli_bins_and_hints(tmp_path):
 def _parsers():
     from repro_torch.core.baseline import build_compare_parser
     from repro_torch.core.ci import build_ci_parser
+    from repro_torch.core.lint import build_lint_parser
     from repro_torch.core.main import build_plan_parser, build_run_parser
     from repro_torch.core.tune import build_tune_parser
     from repro_torch.scopeplot.report import build_report_parser
     from repro_torch.store.cli import build_query_parser, build_store_parser
     return {"run": build_run_parser(), "plan": build_plan_parser(),
             "compare": build_compare_parser(), "tune": build_tune_parser(),
-            "ci": build_ci_parser(), "query": build_query_parser(),
+            "ci": build_ci_parser(), "lint": build_lint_parser(),
+            "query": build_query_parser(),
             "store": build_store_parser(), "report": build_report_parser()}
 
 

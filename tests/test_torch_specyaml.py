@@ -11,11 +11,11 @@ import json
 import math
 import os
 import pathlib
+import random
 import re
 
 import pytest
 import yaml
-from hypothesis_compat import given, settings, st
 
 import test_report
 import test_scopeplot
@@ -304,23 +304,62 @@ def test_dump_writes_what_safe_dump_writes_for_report_specs(tmp_path):
     assert specyaml.dump(spec) == yaml.safe_dump(spec, sort_keys=False)
 
 
-_scalars = (st.none() | st.booleans() | st.integers(-10**12, 10**12)
-            | st.floats(allow_nan=False) | st.text(max_size=12))
-_trees = st.recursive(
-    _scalars,
-    lambda children: st.lists(children, max_size=4)
-    | st.dictionaries(st.text(min_size=1, max_size=8), children,
-                      max_size=4),
-    max_leaves=12)
+#: Characters the random strings draw from: letters and digits, YAML's
+#: indicators, quotes, whitespace and line breaks, control and non-ASCII
+#: characters.
+_CHARS = ("abcXYZ019 _-.:#&*!|>'\"%@`,[]{}?=~\t\n\r\x00\x07\x85"
+          "\u00e9\u2014\u2028\ufeff\U0001f600")
+_FLOATS = (0.0, -0.0, 1.0, -1.5, 1e-9, 1e20, 1e300, -1e-300, 5e-324,
+           math.inf, -math.inf, 0.1, 1e16, 12345.678)
 
 
-@given(st.dictionaries(st.text(min_size=1, max_size=8), _trees,
-                       min_size=1, max_size=5))
-@settings(max_examples=150, deadline=None)
-def test_dump_round_trips_any_tree(obj):
-    text = specyaml.dump(obj)
-    assert same(yaml.safe_load(text), obj), text
-    assert same(specyaml.load(text)[0], obj), text
+def _text(rng, min_size=0, max_size=12):
+    return "".join(rng.choice(_CHARS)
+                   for _ in range(rng.randint(min_size, max_size)))
+
+
+def _scalar(rng):
+    kind = rng.randrange(6)
+    if kind == 0:
+        return None
+    if kind == 1:
+        return rng.random() < 0.5
+    if kind == 2:
+        return rng.randint(-10**12, 10**12)
+    if kind == 3:
+        return rng.choice(_FLOATS)
+    if kind == 4:
+        return rng.uniform(-1, 1) * 10.0 ** rng.randint(-30, 30)
+    return _text(rng)
+
+
+def _tree(rng, leaves):
+    """A scalar, or a list or dict of up to four subtrees; ``leaves`` is
+    the budget of scalars left in the whole tree (12 at most)."""
+    if leaves[0] <= 1 or rng.random() < 0.5:
+        leaves[0] -= 1
+        return _scalar(rng)
+    n = rng.randint(0, 4)
+    if rng.random() < 0.5:
+        return [_tree(rng, leaves) for _ in range(n) if leaves[0] > 0]
+    return {_text(rng, 1, 8): _tree(rng, leaves)
+            for _ in range(n) if leaves[0] > 0}
+
+
+def _random_spec(rng):
+    """Dicts of 1-5 string keys over trees of scalars, lists and dicts
+    (at most 12 leaves a tree): the space the round trip is held on."""
+    return {_text(rng, 1, 8): _tree(rng, [12])
+            for _ in range(rng.randint(1, 5))}
+
+
+def test_dump_round_trips_any_tree():
+    rng = random.Random(0)
+    for _ in range(150):
+        obj = _random_spec(rng)
+        text = specyaml.dump(obj)
+        assert same(yaml.safe_load(text), obj), text
+        assert same(specyaml.load(text)[0], obj), text
 
 
 def test_dump_refuses_what_a_spec_cannot_hold():
