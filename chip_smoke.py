@@ -223,16 +223,37 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      llama3.2-1b at its published width and depth (``reduced=False``)
      must finish its 16 requests of 16 tokens; and each of the four
      examples (``python -m repro_torch.examples.<name> --device cuda``,
-     their defaults: train_lm trains 300 steps) must exit 0.  One
+     their defaults but train_lm's 300 steps, cut to 60) must exit 0.  One
      ``{"lint": ...}`` line holds each step's exit code and wall, the
      findings by severity, the families traced and kernel nodes seen,
      the launches, the harness's lines and ``serve_demo``'s stats;
- 20. a ``{"host_path_us": ..., "main_path_idle": ...}`` line, a
+ 20. dry-run: ``python -m repro_torch.launch.dryrun --arch llama3.2-1b
+     --shape all --device cuda`` into a temporary directory, once on the
+     16×16 mesh and once with ``--multi-pod`` on 2×16×16 (two children
+     at once; each traces every cell for one rank over a fake group of
+     256 or 512 ranks, on fake tensors: nothing launches): both exit 0,
+     train_4k, prefill_32k and decode_32k are ``ok`` on both meshes and
+     long_500k is the reference's skip; per cell its trace seconds,
+     per-rank FLOPs, HBM bytes, collective bytes by kind, the three
+     terms in H100 terms, the dominant one and the static peak.  (b)
+     in a third child at the same time, one card: a cell on
+     ``make_host_mesh(1)`` at phase 17's shape (B2 x S4096, the
+     train_4k policy) through the dry-run's Python API, its FLOPs held
+     to ``FlopCounterMode`` over one real step on the card within
+     ``DRYRUN_FLOP_RTOL``; its static peak and bound are printed beside
+     phase 17's ``max_memory_allocated`` and measured step.  (c) ``python
+     -m repro_torch run --enable-scope model --model.dryrun_dir <dir>``:
+     ``dryrun_rooflines`` is a record with ``cells`` ≥ 6 (phase 10 ran
+     before any cell existed and checked the skip).  (d) ``python -m
+     repro_torch.roofline.report --dir <dir>`` exits 0 and prints the
+     roofline table.  One ``{"dryrun": ...}`` line;
+ 21. a ``{"host_path_us": ..., "main_path_idle": ...}`` line, a
      ``{"models": [...]}`` line (phase 8's rows), a ``{"serve": ...}``
      line (phases 15 and 16), a ``{"train": ...}`` line (phase 17), a
      ``{"report": ...}`` line (phase 18: each step's wall, the plots
      and SVG bytes written, whether the host can import matplotlib and
-     yaml), the ``{"lint": ...}`` line (phase 19), then one
+     yaml), the ``{"lint": ...}`` line (phase 19), the ``{"dryrun":
+     ...}`` line (phase 20), then one
      ``{"kernels": [...]}`` line: per kernel its launches on the main
      path (with each variant's, for matmul, flash attention and SSD), its
      largest error against the plain version, and its time,
@@ -241,7 +262,7 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      instantiated tile under ``tiles``).
      ``ms`` is the time per call of back-to-back calls through the
      wrapper (CUDA events), ``device_ms`` the kernels alone (profiler);
- 21. last line: ``{"ok": true, "device": {...}}``.
+ 22. last line: ``{"ok": true, "device": {...}}``.
 
 Every comparison holds the kernel to its plain version on the same
 inputs with ``atol = rtol = tol``, ``tol`` being the reference's own
@@ -1778,12 +1799,19 @@ MODEL_CPU_SEQ = 256
 MODEL_CPU_LOSS_TOL, MODEL_CPU_LOGITS_TOL = 1e-4, 5e-3
 
 
-def forward_flops(cfg, B, S) -> float:
-    """A forward's model FLOPs: 2·params·tokens plus causal attention's
-    2·B·S²·H·hd (QKᵀ and PV, halved by the mask) per attention layer."""
+def causal_attention_flops(cfg, B, S) -> float:
+    """A forward's causal attention: 2·B·S²·H·hd (QKᵀ and PV, halved by
+    the mask) per attention layer."""
     attn_layers = sum(cfg.is_attn_layer(i) for i in range(cfg.num_layers))
-    return 2.0 * cfg.num_params() * B * S \
-        + attn_layers * 2.0 * B * S * S * cfg.num_heads * cfg.hd
+    return attn_layers * 2.0 * B * S * S * cfg.num_heads * cfg.hd
+
+
+def forward_flops(cfg, B, S) -> float:
+    """A forward's model FLOPs: the roofline's 2·N·tokens
+    (``repro_torch.roofline.model_flops``) plus causal attention."""
+    from repro_torch.roofline import model_flops
+    return model_flops(cfg, B * S, "prefill") \
+        + causal_attention_flops(cfg, B, S)
 
 
 def profile_step(fn, top: int = 8) -> dict:
@@ -2488,7 +2516,10 @@ def phase_train(hw: dict) -> dict:
     times = [h["seconds"] * 1e3 for h in hist]
     steady = sorted(times[2:])
     ms = steady[len(steady) // 2]
-    flops = 3 * forward_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    # three forwards: the roofline's 6·N·tokens and the attention thrice
+    from repro_torch.roofline import model_flops
+    flops = model_flops(cfg, TRAIN_BATCH * TRAIN_SEQ, "train") \
+        + 3 * causal_attention_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
     # one profiled step on a fresh state (the trainer's is gone)
     opt = AdamWConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS, warmup_steps=5)
     step_fn = make_train_step(api, opt)
@@ -2807,8 +2838,10 @@ LINT_RUN_SCOPES = ["mxu", "histo", "nn", "linalg"]
 #: The families whose fixtures do not follow ``(callable, *operands)``:
 #: their SCOPE203 infos are the only findings the lint may report.
 LINT_OPAQUE = {"example/axpy", "serve/under_load"}
-#: The examples, each run with its defaults (train_lm: 300 steps).
-EXAMPLES = ["quickstart", "characterize", "serve_lm", "train_lm"]
+#: The examples, each with its defaults but for these arguments
+#: (train_lm's 300 steps cut to 60: the phase checks that it runs).
+EXAMPLES = {"quickstart": [], "characterize": [], "serve_lm": [],
+            "train_lm": ["--steps", "60"]}
 #: A scope whose one family the trace tier refuses (SCOPE201): its
 #: callable sums a constant, whatever its operand.
 PLANTED = "chip_smoke_planted_scope"
@@ -3017,10 +3050,11 @@ def phase_lint() -> dict:
     log(f"serve_demo llama3.2-1b full width: {stats} in {wall:.1f} s")
     # (f) the four examples
     row["examples"] = {}
-    for name in EXAMPLES:
+    for name, args in EXAMPLES.items():
         with tempfile.TemporaryDirectory() as tmp:
             r = python_module(f"repro_torch.examples.{name}", "--device",
-                              "cuda", cwd=tmp, env_extra={"TMPDIR": tmp})
+                              "cuda", *args, cwd=tmp,
+                              env_extra={"TMPDIR": tmp})
         if r.returncode != 0:
             raise AssertionError(f"example {name} exited {r.returncode}:"
                                  f"\n{r.stderr[-3000:]}")
@@ -3032,6 +3066,197 @@ def phase_lint() -> dict:
     row["phase_s"] = time.perf_counter() - t_phase
     log(f"lint phase: {row['phase_s']:.1f} s")
     return row
+#: The dry-run phase: llama3.2-1b's cells at its published width and
+#: depth on the reference's production meshes, traced for one rank over
+#: fake groups of 256 and 512 ranks.
+DRYRUN_ARCH = "llama3.2-1b"
+DRYRUN_MESHES = {"pod16x16": [], "pod2x16x16": ["--multi-pod"]}
+DRYRUN_OK_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+#: (b) the one-card cell's per-device FLOPs against ``FlopCounterMode``
+#: over one real step on the card (relative).
+DRYRUN_FLOP_RTOL = 0.01
+#: the wall a child may take (each traces four cells)
+DRYRUN_TIMEOUT_S = 500
+
+
+def dryrun_one_card() -> dict:
+    """Phase 20 (b), run in a child: the cell of phase 17's step on a
+    one-rank mesh of the card (``make_host_mesh(1)``), through the
+    dry-run's API with a ``ShapeSpec`` of B ``TRAIN_BATCH`` x S
+    ``TRAIN_SEQ`` under the train_4k policy, and ``FlopCounterMode``
+    over one real step of the same configuration on the card."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.inputs import ShapeSpec
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build, get_config
+    from repro_torch.train import AdamWConfig, make_init_fn, make_train_step
+    spec = ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    base = get_config(DRYRUN_ARCH)
+    t0 = time.perf_counter()
+    with make_host_mesh(1, device_type="cuda") as mesh:
+        traced, meta = dryrun.lower_cell(DRYRUN_ARCH, "train_4k", mesh=mesh,
+                                         spec=spec, device="cuda", cfg=base)
+    wall = time.perf_counter() - t0
+    cfg = dryrun.tune_config(base, "train_4k", {})
+    api = build(cfg)
+    opt = AdamWConfig(lr=TRAIN_LR)
+    step = make_train_step(api, opt,
+                           num_microbatches=meta["microbatches"])
+    state = make_init_fn(api, opt)(
+        torch.Generator(device="cuda").manual_seed(0))
+    batch = _on(_train_batches(cfg, 1, TRAIN_BATCH, TRAIN_SEQ)[0], "cuda")
+    with FlopCounterMode(display=False) as counter:
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+    return {"cell": meta, "wall_s": wall,
+            "real_step_flops": float(counter.get_total_flops()),
+            "real_step_loss": loss}
+
+
+def _cell_line(d: dict) -> str:
+    r, mem = d["roofline"], d["memory"]
+    coll = ", ".join(f"{k} {v:.4g}" for k, v in r["per_kind"].items() if v)
+    return (f"{d['arch']} {d['shape']} {d['mesh']} ({d['chips']} ranks, "
+            f"{d['param_mode']}"
+            + (f", {d['microbatches']} microbatches" if "microbatches" in d
+               else "")
+            + f"): traced in {d['compile_s']} s ({d['graph_nodes']} nodes); "
+            f"per rank {r['hlo_flops']:.4g} FLOPs, {r['hlo_bytes']:.4g} HBM "
+            f"B, collective {r['collective_bytes_']:.4g} B ({coll or 'none'}"
+            f"); compute {r['compute_s'] * 1e3:.3f} ms, memory "
+            f"{r['memory_s'] * 1e3:.3f} ms, collective "
+            f"{r['collective_s'] * 1e3:.3f} ms: {r['dominant']}; useful "
+            f"{r['useful_ratio']:.3f}; static peak {mem['peak_bytes']:,} B")
+
+
+def phase_dryrun(hw: dict, trained: dict) -> dict:
+    """Phase 20: the dry-run's cells on the production meshes, the
+    one-card cell against a real step, the model scope and the report
+    over the cells (see the module docstring)."""
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [os.path.join(ROOT, "src"),
+                      os.environ.get("PYTHONPATH")])))
+    row: dict = {"card": hw["card"], "meshes": {}}
+    with tempfile.TemporaryDirectory(prefix="dryrun-") as out:
+        children = {}
+        for mesh, extra in DRYRUN_MESHES.items():
+            children[mesh] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", DRYRUN_ARCH, "--shape", "all", "--device",
+                 "cuda", "--out", out, *extra], env=env, cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        one_card = (time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-c",
+             "import json, chip_smoke; "
+             "print(json.dumps(chip_smoke.dryrun_one_card()))"],
+            env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+        for mesh, (t0, child) in children.items():
+            try:
+                stdout, stderr = child.communicate(timeout=DRYRUN_TIMEOUT_S)
+            finally:
+                child.kill()
+            wall = time.perf_counter() - t0
+            if child.returncode != 0:
+                raise AssertionError(
+                    f"dryrun {mesh} exited {child.returncode}:\n"
+                    f"{stdout[-2000:]}\n{stderr[-3000:]}")
+            row["meshes"][mesh] = {"wall_s": wall}
+            log(f"dryrun {DRYRUN_ARCH} --shape all on {mesh}: exit 0 in "
+                f"{wall:.1f} s")
+        cells = {}
+        for path in sorted(glob.glob(os.path.join(out, "*.json"))):
+            with open(path) as f:
+                d = json.load(f)
+            cells[(d["shape"], d["mesh"])] = d
+        for mesh in DRYRUN_MESHES:
+            for shape in DRYRUN_OK_SHAPES:
+                d = cells.get((shape, mesh))
+                if d is None or d["status"] != "ok":
+                    raise AssertionError(f"dryrun {shape} on {mesh}: {d}")
+                log("  " + _cell_line(d))
+            skip = cells.get(("long_500k", mesh))
+            if skip is None or skip["status"] != "skip" or \
+                    not skip["reason"].startswith("long_500k skipped"):
+                raise AssertionError(f"dryrun long_500k on {mesh}: {skip}")
+        row["cells"] = [cells[k] for k in sorted(cells)]
+        slowest = max((d for d in cells.values() if d["status"] == "ok"),
+                      key=lambda d: d["compile_s"])
+        row["slowest"] = f"{slowest['shape']} {slowest['mesh']}"
+        log(f"  slowest trace: {row['slowest']} ({slowest['compile_s']} s)")
+
+        # (b) one card: the cell's FLOPs against a real step's
+        t0, child = one_card
+        try:
+            stdout, stderr = child.communicate(timeout=DRYRUN_TIMEOUT_S)
+        finally:
+            child.kill()
+        if child.returncode != 0:
+            raise AssertionError(f"dryrun one-card child exited "
+                                 f"{child.returncode}:\n{stderr[-3000:]}")
+        one = json.loads(stdout.strip().splitlines()[-1])
+        cell = one["cell"]
+        traced_flops = cell["roofline"]["hlo_flops"]
+        real = one["real_step_flops"]
+        flop_err = abs(traced_flops - real) / real
+        bound_ms = 1e3 * max(cell["roofline"][k] for k in (
+            "compute_s", "memory_s", "collective_s"))
+        one.update(flop_rel_err=flop_err, bound_ms=bound_ms,
+                   phase17_step_ms=trained["ms"],
+                   phase17_max_memory_allocated=trained[
+                       "max_memory_allocated"])
+        row["one_card"] = one
+        log("  one card: " + _cell_line(cell))
+        log(f"  one card: traced FLOPs {traced_flops:.6g} against "
+            f"FlopCounterMode over one real step {real:.6g}: relative "
+            f"{flop_err:.3g} (tol {DRYRUN_FLOP_RTOL}); static peak "
+            f"{cell['memory']['peak_bytes']:,} B beside phase 17's "
+            f"max_memory_allocated {trained['max_memory_allocated']:,} B; "
+            f"bound {bound_ms:.2f} ms beside phase 17's step "
+            f"{trained['ms']:.2f} ms")
+        if not flop_err <= DRYRUN_FLOP_RTOL:
+            raise AssertionError(
+                f"dryrun one-card FLOPs {traced_flops} against the real "
+                f"step's {real}: {flop_err:.3g} > {DRYRUN_FLOP_RTOL}")
+
+        # (c) the model scope reads the cells
+        doc = os.path.join(out, "model_scope.json")
+        r = checked_run("run", "--enable-scope", "model",
+                        "--benchmark_filter", "dryrun_rooflines",
+                        "--model.dryrun_dir", out, "--results-dir", "",
+                        "--benchmark_out", doc)
+        with open(doc) as f:
+            (rec,) = json.load(f)["benchmarks"]
+        ok_cells = sum(d["status"] == "ok" for d in cells.values())
+        if rec.get("skipped") or rec.get("error_occurred") or \
+                rec["cells"] < 6 or rec["cells"] != ok_cells:
+            raise AssertionError(f"model/dryrun_rooflines over the cells: "
+                                 f"{rec}")
+        row["model_scope"] = {"cells": rec["cells"],
+                              "sum_bound_s": rec["sum_bound_s"],
+                              "wall_s": r.wall_s}
+        log(f"  model/dryrun_rooflines: cells {rec['cells']}, sum_bound_s "
+            f"{rec['sum_bound_s']:.6g} ({r.wall_s:.1f} s)")
+
+        # (d) the report over the cells
+        rep = python_module("repro_torch.roofline.report", "--dir", out,
+                            cwd=ROOT)
+        if rep.returncode != 0 or \
+                f"| {DRYRUN_ARCH} | train_4k | ok |" not in rep.stdout:
+            raise AssertionError(f"roofline.report exited "
+                                 f"{rep.returncode}:\n{rep.stdout[-2000:]}"
+                                 f"\n{rep.stderr[-2000:]}")
+        row["report"] = {"wall_s": rep.wall_s,
+                         "lines": len(rep.stdout.splitlines())}
+        for line in rep.stdout.splitlines():
+            if line.startswith(f"| {DRYRUN_ARCH}"):
+                log("  " + line)
+    row["phase_s"] = time.perf_counter() - t_phase
+    log(f"dryrun phase: {row['phase_s']:.1f} s")
+    return row
+
 
 def main() -> int:
     hw = phase_device()
@@ -3050,6 +3275,7 @@ def main() -> int:
     trained = phase_train(hw)
     report = phase_report()
     linted = phase_lint()
+    dry = phase_dryrun(hw, trained)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["sass"] = sass[k["name"]]
@@ -3065,6 +3291,7 @@ def main() -> int:
     print(json.dumps({"train": trained}), flush=True)
     print(json.dumps({"report": report}), flush=True)
     print(json.dumps({"lint": linted}), flush=True)
+    print(json.dumps({"dryrun": dry}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -200,18 +200,11 @@ def _analyze_graph(out: CompiledWorkload, graph) -> None:
 
 def _flops(gm, args) -> float:
     """FLOPs of the traced graph, run once more on fake copies of the
-    operands under ``FlopCounterMode`` (metadata only: no launch)."""
-    import torch
-    from torch._subclasses.fake_tensor import FakeTensorMode
-    from torch.utils._pytree import tree_map
-    from torch.utils.flop_counter import FlopCounterMode
+    operands under ``FlopCounterMode`` (metadata only: no launch) — the
+    dry-run's counter, ``repro_torch.roofline.graph.graph_flops``."""
+    from repro_torch.roofline.graph import graph_flops
     try:
-        mode = FakeTensorMode(allow_non_fake_inputs=True)
-        fake = tree_map(lambda a: mode.from_tensor(a)
-                        if isinstance(a, torch.Tensor) else a, args)
-        with mode, FlopCounterMode(display=False) as counter:
-            gm(*fake)
-        return float(counter.get_total_flops())
+        return graph_flops(gm, args)
     except Exception as e:  # noqa: BLE001 - flops are advisory here
         log.debug("lint: flops analysis failed: %s", e)
         return 0.0

@@ -207,14 +207,20 @@ def _tensor_bytes(tree: Any) -> int:
 
 def _bytes_mode():
     """A ``TorchDispatchMode`` that sums, over every op dispatched under
-    it, the bytes of the op's tensor operands and results.  Views move
-    no data and are skipped: the ops the schema marks as views
-    (``func.is_view``) and ``_unsafe_view``, which is one without the
-    mark.  Built on call so that importing this module imports no
-    torch."""
+    it, the bytes of the op's tensor operands and results.  Ops that
+    move no data are skipped: the ops the schema marks as views
+    (``func.is_view``), ``_unsafe_view``, which is one without the
+    mark, the ``prim`` metadata queries (``prim.device``, which a view
+    of a fake tensor dispatches) and a functional collective's
+    ``wait_tensor`` (a fence on its result).  Built on call so that
+    importing this module imports no torch."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
     unsafe_view = torch.ops.aten._unsafe_view.default
+    import torch.distributed  # noqa: F401 - registers _c10d_functional
+    wait = getattr(getattr(torch.ops, "_c10d_functional", None),
+                   "wait_tensor", None)
+    wait = getattr(wait, "default", None)
 
     class BytesMode(TorchDispatchMode):
         def __init__(self):
@@ -223,7 +229,8 @@ def _bytes_mode():
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
-            if not (func.is_view or func is unsafe_view):
+            if not (func.is_view or func is unsafe_view or func is wait
+                    or func.namespace == "prim"):
                 self.nbytes += _tensor_bytes((args, kwargs)) \
                     + _tensor_bytes(out)
             return out

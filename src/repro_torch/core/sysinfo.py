@@ -32,6 +32,10 @@ H100_SXM = types.MappingProxyType({
     "peak_tf32_flops": 495e12,     # tensor cores, dense
     "peak_fp32_flops": 67e12,      # outside the tensor cores
     "hbm_bandwidth": 3.35e12,      # B/s
+    # NVLink 4, 18 links: 900 GB/s is the bidirectional aggregate (both
+    # directions summed); one direction carries half.  The counterpart
+    # of the reference's ``ici_link_bandwidth``.
+    "nvlink_bandwidth": 900e9,     # B/s, both directions
 })
 H100_PCIE = types.MappingProxyType({
     "name": "h100_pcie",
@@ -39,6 +43,9 @@ H100_PCIE = types.MappingProxyType({
     "peak_tf32_flops": 378e12,
     "peak_fp32_flops": 51e12,
     "hbm_bandwidth": 2.0e12,
+    # with the NVLink bridge (three bridges joining two cards): 600 GB/s
+    # bidirectional aggregate, half of it in one direction
+    "nvlink_bandwidth": 600e9,     # B/s, both directions
 })
 HOPPER: Mapping[str, Mapping[str, Any]] = types.MappingProxyType({
     "NVIDIA H100 80GB HBM3": H100_SXM,

@@ -1,6 +1,7 @@
-"""repro_torch.distributed — fault tolerance for the trainer (the
-straggler watchdog).  The reference's sharding rules, partition specs
-and gradient compression need a mesh and are not ported yet."""
+"""repro_torch.distributed — the partition and logical rules that place
+a state on a mesh (``partition``, ``logical``: DTensor placements on a
+``DeviceMesh``), and fault tolerance for the trainer (the straggler
+watchdog).  The reference's gradient compression is not ported yet."""
 from .straggler import DataReassigner, StragglerConfig, StragglerWatchdog
 
 __all__ = ["DataReassigner", "StragglerConfig", "StragglerWatchdog"]

@@ -1,3 +1,6 @@
 """repro_torch.launch — entry points: the one-card trainer
-(``python -m repro_torch.launch.train``).  The reference's mesh, dry
-run and multi-pod serving need a mesh and are not ported yet."""
+(``python -m repro_torch.launch.train``), the serving driver
+(``launch.serve``) and the dry-run (``python -m
+repro_torch.launch.dryrun``, over the shapes of ``launch.inputs`` and
+the meshes of ``launch.mesh``).  Training on a model-parallel mesh is
+not ported yet."""

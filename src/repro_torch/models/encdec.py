@@ -100,7 +100,7 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor
                          cfg.hd, False, cfg.norm_eps)
         o = L.flash_attention_xla(q, k, v, causal=False,
                                   chunk_q=ck, chunk_k=ck)
-        x = x + o.reshape(B, Se, -1) @ p["attn"]["wo"].to(x.dtype)
+        x = x + L.out_proj(o.reshape(B, Se, -1), p["attn"]["wo"])
         h = norm_f(p["ln2"], x, cfg.norm_eps)
         return x + L.mlp(p["mlp"], h, cfg.act)
 
@@ -141,7 +141,7 @@ def _decoder(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                                   chunk_q=cfg.attn_chunk_q,
                                   chunk_k=cfg.attn_chunk_k,
                                   causal_skip=cfg.causal_skip)
-        x = x + o.reshape(B, S, -1) @ p["attn"]["wo"].to(x.dtype)
+        x = x + L.out_proj(o.reshape(B, S, -1), p["attn"]["wo"])
         # cross-attention
         h = norm_f(p["ln_x"], x, cfg.norm_eps)
         qx = (h @ p["cross"]["wq"].to(x.dtype)).reshape(
@@ -149,7 +149,7 @@ def _decoder(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         kx, vx = _cross_kv(cfg, p["cross"], enc)
         ox = L.flash_attention_xla(qx, kx, vx, causal=False,
                                    chunk_q=cfg.attn_chunk_q, chunk_k=ckx)
-        x = x + ox.reshape(B, S, -1) @ p["cross"]["wo"].to(x.dtype)
+        x = x + L.out_proj(ox.reshape(B, S, -1), p["cross"]["wo"])
         h = norm_f(p["ln2"], x, cfg.norm_eps)
         x = x + L.mlp(p["mlp"], h, cfg.act)
         return x, ((k, v, kx, vx) if collect_kv else None)
@@ -213,8 +213,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
     tensors in place; return last-position logits."""
     h, _aux, (k, v, xk, xv) = hidden(cfg, params, batch, collect_kv=True)
     S = batch["tokens"].shape[1]
-    cache["k"][:, :, :S] = k
-    cache["v"][:, :, :S] = v
+    L.write_prefix(cache["k"], k)
+    L.write_prefix(cache["v"], v)
     cache["xk"].copy_(xk)
     cache["xv"].copy_(xv)
     cache = dict(cache, pos=torch.full((), S, dtype=torch.int32,
@@ -245,13 +245,13 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         L.write_at(k_c, k, pos)
         L.write_at(v_c, v, pos)
         o = L.decode_attention(q, k_c, v_c, pos + 1)
-        x = x + o.reshape(B, 1, -1) @ p["attn"]["wo"].to(x.dtype)
+        x = x + L.out_proj(o.reshape(B, 1, -1), p["attn"]["wo"])
         h = norm_f(p["ln_x"], x, cfg.norm_eps)
         qx = (h @ p["cross"]["wq"].to(x.dtype)).reshape(
             B, 1, cfg.num_heads, cfg.hd)
         ox = L.naive_attention(qx, cache["xk"][i], cache["xv"][i],
                                causal=False)
-        x = x + ox.reshape(B, 1, -1) @ p["cross"]["wo"].to(x.dtype)
+        x = x + L.out_proj(ox.reshape(B, 1, -1), p["cross"]["wo"])
         h = norm_f(p["ln2"], x, cfg.norm_eps)
         x = x + L.mlp(p["mlp"], h, cfg.act)
     x = norm_f(params["final_norm"], x, cfg.norm_eps)

@@ -125,8 +125,8 @@ def _superblock(cfg: ModelConfig, p: Params, x: torch.Tensor,
                                       chunk_k=cfg.attn_chunk_k,
                                       causal_skip=cfg.causal_skip)
             B, S = x.shape[:2]
-            y = o.reshape(B, S, cfg.num_heads * cfg.hd) @ \
-                pa["wo"].to(x.dtype)
+            y = L.out_proj(o.reshape(B, S, cfg.num_heads * cfg.hd),
+                           pa["wo"])
             if collect:
                 kv = (k, v)
         x = x + y
@@ -155,7 +155,7 @@ def hidden(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = L.embed(params["embed"], tokens, L.dtype_of(cfg.dtype))
-    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    positions = L.token_positions(tokens)
 
     def block(x, p):
         return _superblock(cfg, p, x, positions, collect)
@@ -223,8 +223,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
     h, _aux, caches = hidden(cfg, params, batch, collect=True)
     k, v = caches["kv"]                              # [nb,B,S,K,hd]
     S = batch["tokens"].shape[1]
-    cache["k"][:, :, :S] = k
-    cache["v"][:, :, :S] = v
+    L.write_prefix(cache["k"], k)
+    L.write_prefix(cache["v"], v)
     cache["state"].copy_(caches["state"])
     tree.map(lambda c, t: c.copy_(t), cache["conv"], caches["conv"])
     cache = dict(cache, pos=torch.full((), S, dtype=torch.int32,
@@ -270,8 +270,8 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 L.write_at(k_c, k, pos)
                 L.write_at(v_c, v, pos)
                 o = L.decode_attention(q, k_c, v_c, pos + 1)
-                y = o.reshape(B, 1, cfg.num_heads * cfg.hd) @ \
-                    pa["wo"].to(x.dtype)
+                y = L.out_proj(o.reshape(B, 1, cfg.num_heads * cfg.hd),
+                               pa["wo"])
             x = x + y
             h = L.rms_norm({"scale": p["ln2"][j]}, x, cfg.norm_eps)
             if is_moe:

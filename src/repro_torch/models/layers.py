@@ -21,8 +21,19 @@ tensors made by the matching ``init_*`` functions (from an explicit
 (``H % K == 0``).  Weights are cast to the activations' dtype at each
 product (``x @ w.to(x.dtype)``), so a bfloat16 forward rounds every
 product to bfloat16 where the reference does.  The reference's
-``constrain`` sharding annotations are left out: the port has no mesh
-yet.  JAX's ``lax.scan`` loops become Python loops; products that the
+``constrain`` sharding annotations stand at its sites (q/k/v, the
+attention scores, the MLP, the experts' buffers, the Mamba2
+projections); they act only on DTensors under bound logical
+rules (``repro_torch.distributed.logical``), so a plain forward is
+unchanged.  Under rules the regions that sharding propagation cannot
+carry run on each rank's shards (``logical.local``): the attention
+(heads on 'model', the GQA kv heads each rank's q heads read), the
+decode attention over a sequence-sharded cache (the flash-decode
+combine), the prompt's and the decode's cache writes, the
+vocabulary-parallel cross-entropy, the SSD scan and the convolutions,
+and the MoE layer (batch-sharded, experts gathered: the expert-parallel
+``moe_shard_map`` is not ported yet).  JAX's ``lax.scan`` loops become
+Python loops; products that the
 reference takes with ``preferred_element_type=float32`` are taken on
 float32 copies of the operands, which gives the same products (a
 bfloat16 product is exact in float32) summed in float32.
@@ -37,6 +48,13 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
+
+from repro_torch.distributed.logical import (Placed, active_rules,
+                                             constrain, is_dtensor, local,
+                                             mesh_coordinate, mesh_mean,
+                                             mesh_reduce, mesh_size,
+                                             mesh_sum, sharded)
+from repro_torch.models.tracing import repeated, traced_source
 
 Params = Dict[str, Any]
 
@@ -60,6 +78,13 @@ def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None,
 def embed_init(gen: torch.Generator, shape, device=None) -> torch.Tensor:
     return torch.randn(shape, generator=gen, dtype=torch.float32,
                        device=init_device(gen, device)) * 0.02
+
+
+def _scalar(value: float, like: torch.Tensor) -> float:
+    """``value`` rounded to ``like``'s dtype on the host, as a Python
+    float: a product with it has the bits of one with a 0-d tensor of
+    that dtype, launches nothing to make it, and traces as a constant."""
+    return float(torch.tensor(value, dtype=like.dtype))
 
 
 def init_device(gen: torch.Generator, device) -> torch.device:
@@ -119,6 +144,7 @@ def init_rmsnorm(d: int, device) -> Params:
     return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
 
 
+@traced_source
 def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """``x * rsqrt(mean(x^2) + eps) * scale`` in float32, cast back to
     ``x.dtype``."""
@@ -142,6 +168,7 @@ def init_layernorm(d: int, device) -> Params:
             "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
 
 
+@traced_source
 def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm in float32 with the population variance (``jnp.var``),
     cast back to ``x.dtype``."""
@@ -158,11 +185,20 @@ def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def token_positions(tokens: torch.Tensor) -> torch.Tensor:
+    """``[B, S]`` positions 0..S-1 of every row of ``tokens`` (under
+    logical rules, each rank's rows)."""
+    return local(lambda t: torch.arange(t.shape[1], device=t.device)[
+        None].expand(t.shape[0], t.shape[1]),
+        [("batch", None)], ("batch", None))(tokens)
+
+
 def rope_freqs(hd: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
                                          device=device) / hd))
 
 
+@traced_source
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                mrope_sections: Tuple[int, ...] = (),
                enabled: bool = True) -> torch.Tensor:
@@ -186,9 +222,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                              f"summing to {hd // 2}: {tuple(pos.shape)}, "
                              f"{mrope_sections}")
         # per frequency channel, the position stream that drives it
-        sec_id = torch.repeat_interleave(
-            torch.arange(len(mrope_sections), device=x.device),
-            torch.tensor(mrope_sections, device=x.device))
+        sec_id = torch.tensor([i for i, n in enumerate(mrope_sections)
+                               for _ in range(n)], device=x.device)
         # angle[b,s,c] = pos[sec_id[c],b,s] * freqs[c]
         angle = pos[sec_id].permute(1, 2, 0) * freqs
     else:
@@ -220,13 +255,17 @@ def init_attention(gen: torch.Generator, d: int, H: int, K: int, hd: int,
     return p
 
 
+@traced_source
 def _qkv(p: Params, x: torch.Tensor, H: int, K: int, hd: int,
          qk_norm: bool, eps: float
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     B, S, _ = x.shape
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, hd)
-    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, K, hd)
-    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, K, hd)
+    q = constrain((x @ p["wq"].to(x.dtype)).reshape(B, S, H, hd),
+                  "batch", None, "heads", None)
+    k = constrain((x @ p["wk"].to(x.dtype)).reshape(B, S, K, hd),
+                  "batch", None, "kv_heads", None)
+    v = constrain((x @ p["wv"].to(x.dtype)).reshape(B, S, K, hd),
+                  "batch", None, "kv_heads", None)
     if qk_norm:
         q = rms_norm(p["q_norm"], q, eps)
         k = rms_norm(p["k_norm"], k, eps)
@@ -242,6 +281,7 @@ def repeat_kv(k: torch.Tensor, H: int) -> torch.Tensor:
     return k.repeat_interleave(H // K, dim=2)
 
 
+@traced_source
 def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, q_offset=0,
                     kv_len=None) -> torch.Tensor:
@@ -250,13 +290,18 @@ def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``q_offset``: absolute position of q[0] (for decode: cache length);
     the causal mask is ``k_pos <= q_pos``.  ``kv_len``: valid prefix
     length of k/v (the rest is padding to ignore).  Fully masked rows
-    give zeros.
+    give zeros.  Under logical rules each rank attends with its own
+    heads (:func:`heads_local`).
     """
+    if sharded(q):
+        return heads_local(lambda q_, k_, v_: naive_attention(
+            q_, k_, v_, causal, q_offset, kv_len), q, k, v)
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     kr = repeat_kv(k, H).float()
     vr = repeat_kv(v, H).float()
     s = torch.einsum("bqhd,bshd->bhqs", q.float(), kr) / math.sqrt(D)
+    s = constrain(s, "batch", "heads", None, None)
     q_pos = torch.arange(Sq, device=q.device)[:, None] + q_offset
     k_pos = torch.arange(Sk, device=q.device)[None, :]
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
@@ -307,6 +352,7 @@ def _causal_mask(i, j, cq, ck, Sq, Sk, device) -> torch.Tensor:
     return k_pos <= q_pos
 
 
+@traced_source
 def _flash_fwd_scan(q, kr, vr, causal, cq, ck, causal_skip):
     """Online softmax over chunk pairs.  q [B,Sq,H,D]; kr/vr [B,Sk,H,D].
 
@@ -319,7 +365,7 @@ def _flash_fwd_scan(q, kr, vr, causal, cq, ck, causal_skip):
     """
     B, Sq, H, D = q.shape
     Sk = kr.shape[1]
-    qs = q * torch.tensor(1.0 / math.sqrt(D), dtype=q.dtype)
+    qs = q * _scalar(1.0 / math.sqrt(D), q)
     m = torch.full((B, H, Sq), _NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -330,6 +376,7 @@ def _flash_fwd_scan(q, kr, vr, causal, cq, ck, causal_skip):
         vc = vr[:, jk]
         s = torch.einsum("bqhd,bshd->bhqs", qs[:, iq].float(),
                          kr[:, jk].float())
+        s = constrain(s, "batch", "heads", None, None)
         if masked:
             keep = _causal_mask(i, j, cq, ck, Sq, Sk, q.device)
             s = s.masked_fill(~keep[None, None], _NEG_INF)
@@ -350,9 +397,9 @@ def _flash_fwd_scan(q, kr, vr, causal, cq, ck, causal_skip):
         m[:, :, iq] = m_new
 
     offd, diag = _split_pairs(Sq, Sk, cq, ck, causal, causal_skip)
-    for i, j in offd:
+    for i, j in repeated(offd):
         body(i, j, masked=False)
-    for i, j in diag:
+    for i, j in repeated(diag):
         body(i, j, masked=causal)
     l_safe = torch.where(l == 0.0, 1.0, l)
     out = (acc / l_safe[..., None]).permute(0, 2, 1, 3)   # → [B,Sq,H,D]
@@ -367,6 +414,7 @@ def _flash_fwd(q, k, v, causal, cq, ck, causal_skip):
     return out.to(q.dtype), lse
 
 
+@traced_source
 def _flash_bwd_scan(q, k, v, out, lse, dout, causal, cq, ck, causal_skip):
     """Recompute-based flash backward (no saved per-pair history)."""
     B, Sq, H, D = q.shape
@@ -376,8 +424,8 @@ def _flash_bwd_scan(q, k, v, out, lse, dout, causal, cq, ck, causal_skip):
     scale = 1.0 / math.sqrt(D)
     # the scale is folded into the small [.,S,H,D] tensors once:
     #   s = (q·scale)·k ;  ds = p·(do'·v − δ') with do' = do·scale
-    qs = q * torch.tensor(scale, dtype=q.dtype)
-    dos = dout * torch.tensor(scale, dtype=dout.dtype)
+    qs = q * _scalar(scale, q)
+    dos = dout * _scalar(scale, dout)
     # delta'_i = rowsum(do'_i * out_i)  [B,H,Sq]
     delta = torch.einsum("bqhd,bqhd->bhq", dos.float(), out.float())
     dq = torch.zeros((B, Sq, H, D), dtype=torch.float32, device=q.device)
@@ -388,6 +436,7 @@ def _flash_bwd_scan(q, k, v, out, lse, dout, causal, cq, ck, causal_skip):
         iq, jk = slice(i * cq, i * cq + cq), slice(j * ck, j * ck + ck)
         kc, doc = kr[:, jk], dout[:, iq]
         s = torch.einsum("bqhd,bshd->bhqs", qs[:, iq].float(), kc.float())
+        s = constrain(s, "batch", "heads", None, None)
         if masked:
             keep = _causal_mask(i, j, cq, ck, Sq, Sk, q.device)
             s = s.masked_fill(~keep[None, None], _NEG_INF)
@@ -404,9 +453,9 @@ def _flash_bwd_scan(q, k, v, out, lse, dout, causal, cq, ck, causal_skip):
         dk[:, jk] += torch.einsum("bhqs,bqhd->bshd", dsd, q[:, iq].float())
 
     offd, diag = _split_pairs(Sq, Sk, cq, ck, causal, causal_skip)
-    for i, j in offd:
+    for i, j in repeated(offd):
         body(i, j, masked=False)
-    for i, j in diag:
+    for i, j in repeated(diag):
         body(i, j, masked=causal)
     if K != H:                                    # fold GQA repeats back
         G = H // K
@@ -454,9 +503,42 @@ def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if Sq % cq or Sk % ck:
         raise ValueError(f"flash_attention_xla: chunks ({cq}, {ck}) do not "
                          f"divide the sequence lengths ({Sq}, {Sk})")
+    if sharded(q):
+        return heads_local(lambda q_, k_, v_: _FlashAttention.apply(
+            q_, k_, v_, causal, cq, ck, causal_skip), q, k, v)
     return _FlashAttention.apply(q, k, v, causal, cq, ck, causal_skip)
 
 
+def heads_local(fn: Callable, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor) -> torch.Tensor:
+    """``fn(q, k, v)`` on each rank's heads under logical rules.
+
+    q [B,S,H,D] is split by "batch" and "heads", k/v [B,S,K,D] by
+    "batch" and "kv_heads".  When the q heads are split but the kv heads
+    are not (GQA with K below the 'model' axis: the kv projections are
+    replicated), each rank takes the kv heads its q heads read, as the
+    reference's Megatron treatment does, so ``fn`` sees H/m q heads
+    over the matching kv heads; their gradients are each rank's part
+    and are summed over 'model'."""
+    rules = active_rules()
+    H, K = q.shape[2], k.shape[2]
+    qa = ("batch", None, "heads", None)
+    if rules.get("heads") is None or rules.get("kv_heads") is not None \
+            or K == H:
+        kva = ("batch", None, "kv_heads", None)
+        return local(fn, [qa, kva, kva], qa)(q, k, v)
+    G = H // K
+
+    def own_heads(q_, k_, v_):
+        hl = q_.shape[2]
+        first = mesh_coordinate(rules["heads"]) * hl
+        lo, hi = first // G, (first + hl - 1) // G + 1     # a run of heads
+        return fn(q_, k_.narrow(2, lo, hi - lo), v_.narrow(2, lo, hi - lo))
+    kva = ("batch", None, None, None)
+    return local(own_heads, [qa, kva, kva], qa)(q, k, v)
+
+
+@traced_source
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len) -> torch.Tensor:
     """Single-token attention against a (padded) KV cache.
@@ -480,36 +562,123 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     cache that is passed in is widened to float32 (a bfloat16 product
     is exact in float32).
     """
+    if sharded(k_cache):
+        return _decode_attention_sharded(q, k_cache, v_cache, cache_len)
+    return _decode_attention(q, k_cache, v_cache, cache_len)
+
+
+def _decode_attention(q, k_cache, v_cache, cache_len, first: int = 0,
+                      seq_axis=None) -> torch.Tensor:
+    """:func:`decode_attention` on one rank's cache positions ``first``
+    onward; with ``seq_axis`` (under rules: the mesh axes that split the
+    cache's positions) the ranks combine their softmax parts, as flash
+    decoding does."""
     B, _, H, D = q.shape
     Smax, K = k_cache.shape[1], k_cache.shape[2]
     G = H // K
     dtype = k_cache.dtype
-    qs = q.to(dtype) * torch.tensor(1.0 / math.sqrt(D), dtype=dtype)
+    qs = q.to(dtype) * _scalar(1.0 / math.sqrt(D), k_cache)
     qg = qs.reshape(B, K, G, D).float()
     s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float())
+    s = constrain(s, "batch", "heads", None, None)
     cl = torch.as_tensor(cache_len, device=q.device)
     if cl.ndim == 1:                      # ragged: per-row valid prefix [B]
         cl = cl[:, None, None, None]
-    mask = torch.arange(Smax, device=q.device)[None, None, None, :] < cl
+    k_pos = torch.arange(first, first + Smax, device=q.device)
+    mask = k_pos[None, None, None, :] < cl
     s = torch.where(mask, s, _NEG_INF)
-    m = s.amax(dim=-1)
+    m = mesh_reduce(s.amax(dim=-1), "max", seq_axis)
     m_safe = torch.where(torch.isneginf(m), 0.0, m)
     p = torch.exp(s - m_safe[..., None]).to(v_cache.dtype)
     p = torch.where(torch.isneginf(s), 0.0, p).to(v_cache.dtype)
     pf = p.float()
-    l = pf.sum(dim=-1)
-    pv = torch.einsum("bkgs,bskd->bkgd", pf, v_cache.float())
+    l = mesh_reduce(pf.sum(dim=-1), "sum", seq_axis)
+    pv = mesh_reduce(torch.einsum("bkgs,bskd->bkgd", pf, v_cache.float()),
+                     "sum", seq_axis)
     l_safe = torch.where(l == 0.0, 1.0, l)
     o = (pv / l_safe[..., None]).reshape(B, 1, H, D)
     return o.to(q.dtype)
 
 
+def _split_axes(t, dim: int):
+    """The mesh axes (outer first) over which a ``DTensor``'s ``dim`` is
+    split, or None."""
+    names = tuple(n for n, p in zip(t.device_mesh.mesh_dim_names,
+                                    t.placements)
+                  if p.is_shard() and p.dim == dim % t.ndim)
+    return names or None
+
+
+def _decode_attention_sharded(q, k_cache, v_cache, cache_len):
+    """Decode attention on each rank's part of the cache.  A cache split
+    by kv heads takes the q heads that read them; one split by position
+    (GQA with K below the 'model' axis) takes every q head, and the
+    ranks combine their softmax parts over the positions (flash
+    decoding); the cache's placements are kept, so no rank gathers it."""
+    seq = _split_axes(k_cache, 1)
+    heads = "heads" if _split_axes(k_cache, 2) else None
+    qa = ("batch", None, heads, None)
+
+    def attend(q_, k_, v_, cl_):
+        first = mesh_coordinate(seq) * k_.shape[1] if seq else 0
+        return _decode_attention(q_, k_, v_, cl_, first, seq)
+    cla = ("batch",) if getattr(cache_len, "ndim", 0) == 1 else None
+    return local(attend, [qa, None, None, cla], qa)(
+        q, k_cache, v_cache, cache_len)
+
+
+@traced_source
 def write_at(c: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> None:
     """``c[:, pos] = new[:, 0]`` in place, for every row at one scalar
     position, clamped into the cache as ``dynamic_update_slice`` clamps
     its start.  c [B, Smax, ...]; new [B, 1, ...]."""
+    if sharded(c):
+        return _write_at_sharded(c, new, pos)
     idx = pos.clamp(max=c.shape[1] - 1).reshape(1).long()
     c.index_copy_(1, idx, new.to(c.dtype))
+
+
+def _write_at_sharded(c, new, pos) -> None:
+    """:func:`write_at` into a ``DTensor`` cache, in place on each
+    rank's shard: ``new`` is laid out as the cache but for positions,
+    and a cache split by position is written only by the rank that
+    holds ``pos`` (the others keep their rows)."""
+    from torch.distributed.tensor import Replicate
+    seq = _split_axes(c, 1)
+    want = [Replicate() if (p.is_shard() and p.dim == 1) else p
+            for p in c.placements]
+    new_l = new.redistribute(c.device_mesh, want).to_local()
+    pos_l = pos.to_local() if is_dtensor(pos) else pos
+    c_l = c.to_local()
+    sl = c_l.shape[1]
+    idx = pos_l.clamp(max=c.shape[1] - 1) - mesh_coordinate(seq) * sl
+    inside = (idx >= 0) & (idx < sl)
+    idx = idx.clamp(0, sl - 1).reshape(1).long()
+    old = c_l.index_select(1, idx)
+    c_l.index_copy_(1, idx, torch.where(inside, new_l.to(c.dtype), old))
+
+
+@traced_source
+def write_prefix(c: torch.Tensor, new: torch.Tensor) -> None:
+    """``c[:, :, :S] = new`` in place, ``S = new.shape[2]``: a prompt's
+    keys or values [L, B, S, ...] into a cache [L, B, Smax, ...].  Into
+    a ``DTensor`` cache each rank writes its shard: ``new`` is laid out
+    as the cache but for positions, and a cache split by position takes
+    from each rank only the positions it holds (a slice assignment
+    would write a gathered copy, not the shards)."""
+    if not sharded(c):
+        c[:, :, :new.shape[2]] = new
+        return
+    from torch.distributed.tensor import Replicate
+    seq = _split_axes(c, 2)
+    want = [Replicate() if (p.is_shard() and p.dim == 2) else p
+            for p in c.placements]
+    new_l = new.redistribute(c.device_mesh, want).to_local()
+    c_l = c.to_local()
+    first = mesh_coordinate(seq) * c_l.shape[2]
+    n = min(new.shape[2] - first, c_l.shape[2])
+    if n > 0:
+        c_l[:, :, :n] = new_l[:, :, first:first + n]
 
 
 def write_rows(c: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> None:
@@ -542,7 +711,38 @@ def attention_block(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
                                 chunk_k=cfg.attn_chunk_k,
                                 causal_skip=cfg.causal_skip)
     B, S = x.shape[:2]
-    return o.reshape(B, S, H * hd) @ p["wo"].to(x.dtype)
+    return out_proj(o.reshape(B, S, H * hd), p["wo"])
+
+
+@traced_source
+def out_proj(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A sublayer's output projection ``y @ w`` in y's dtype.  Under
+    logical rules a y split over its last dim (the heads, the inner
+    channels) meets w's rows split alike, and the ranks' partial
+    products are summed here (Megatron's row-parallel product), so the
+    residual stream leaves replicated over 'model'.  A y that arrives
+    whole (the flash-decode attention's output) is split to meet w's
+    rows where the partial products' sum moves fewer bytes than
+    gathering w would."""
+    if not sharded(y):
+        return y @ w.to(y.dtype)
+    from torch.distributed.tensor import Replicate, Shard
+    red = _split_axes(y, -1)
+    rows = _split_axes(w, 0)
+    if red is None and rows is not None:
+        out = y.to_local().numel() // y.shape[-1] * w.shape[-1]
+        if out < w.to_local().numel():
+            y = y.redistribute(y.device_mesh, [
+                Shard(y.ndim - 1) if n in rows else p for n, p in
+                zip(y.device_mesh.mesh_dim_names, y.placements)])
+            red = rows
+    names = y.device_mesh.mesh_dim_names
+    w_pl = [Shard(0) if red and n in red else Replicate() for n in names]
+    out_pl = [Replicate() if red and n in red else p
+              for n, p in zip(names, y.placements)]
+    return local(lambda y_, w_: mesh_sum(y_ @ w_.to(y_.dtype), red),
+                 [None, None], Placed(out_pl))(
+        y, w.redistribute(y.device_mesh, w_pl))
 
 
 # ---------------------------------------------------------------------------
@@ -560,15 +760,16 @@ def init_mlp(gen: torch.Generator, d: int, ff: int, act: str = "silu",
     return p
 
 
+@traced_source
 def mlp(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     """SwiGLU (``act="silu"``) or a plain GELU MLP; GELU is the tanh
     form, ``jax.nn.gelu``'s default."""
-    up = x @ p["w_up"].to(x.dtype)
+    up = constrain(x @ p["w_up"].to(x.dtype), "batch", None, "ff")
     if act == "silu":
         h = F.silu(x @ p["w_gate"].to(x.dtype)) * up
     else:
         h = F.gelu(up, approximate="tanh")
-    return h @ p["w_down"].to(x.dtype)
+    return constrain(out_proj(h, p["w_down"]), "batch", None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -645,8 +846,9 @@ def moe_scatter(p: Params, x: torch.Tensor, *, top_k: int,
     gidx = torch.arange(G, device=x.device)[:, None].expand(G, T * top_k)
     buf = torch.zeros((G, E, C, d), dtype=x.dtype, device=x.device)
     buf.index_put_((gidx, flat_e, pos_c), x_rep, accumulate=True)
+    buf = constrain(buf, None, "experts", None, None)
 
-    out_buf = _expert_ffn(p, buf, act)
+    out_buf = constrain(_expert_ffn(p, buf, act), None, "experts", None, None)
 
     y_tok = out_buf[gidx, flat_e, pos_c]                    # gather back
     y_tok = y_tok * (gate_flat * keep)[..., None].to(x.dtype)
@@ -705,15 +907,29 @@ def moe_einsum(p: Params, x: torch.Tensor, *, top_k: int,
     return y, aux
 
 
+@traced_source
 def moe_layer(p: Params, x: torch.Tensor, cfg
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The config's MoE dispatch (``moe_dispatch``: scatter or einsum).
-    The reference's expert-parallel ``moe_shard_map`` needs a mesh,
-    which the port does not have yet."""
+    The reference's expert-parallel ``moe_shard_map`` is not ported
+    yet: under logical rules the layer runs on each rank's batch rows
+    with every expert's weights gathered (the work replicated over
+    'model'), and the aux loss is averaged over the batch axes."""
     fn = moe_scatter if cfg.moe_dispatch == "scatter" else moe_einsum
-    return fn(p, x, top_k=cfg.moe_top_k,
-              capacity_factor=cfg.moe_capacity_factor, act=cfg.act,
-              n_shared=cfg.moe_num_shared)
+
+    def run(p_, x_):
+        return fn(p_, x_, top_k=cfg.moe_top_k,
+                  capacity_factor=cfg.moe_capacity_factor, act=cfg.act,
+                  n_shared=cfg.moe_num_shared)
+    if not sharded(x):
+        return run(p, x)
+    from . import tree
+    leaves = tree.flatten(p)
+    y, aux = local(lambda x_, *w: run(tree.unflatten(p, w), x_),
+                   [("batch", None, None)] + [(None,) * w.ndim
+                                             for w in leaves],
+                   [("batch", None, None), ()])(x, *leaves)
+    return y, mesh_mean(aux, active_rules()["batch"])
 
 
 # ---------------------------------------------------------------------------
@@ -748,11 +964,19 @@ def init_mamba2(gen: torch.Generator, cfg, device=None) -> Params:
     }
 
 
+@traced_source
 def causal_conv1d(w: torch.Tensor, x: torch.Tensor,
-                  tail: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  tail: Optional[torch.Tensor] = None,
+                  channels: Optional[str] = None) -> torch.Tensor:
     """Depthwise causal conv via shift-and-sum, then SiLU.  w [k, C];
     x [B, S, C]; ``tail``: [B, k-1, C] carry-in from earlier tokens
-    (zeros when None).  Sums in float32; the result has x's dtype."""
+    (zeros when None).  Sums in float32; the result has x's dtype.
+    Under logical rules it runs on each rank's rows and ``channels``
+    (a logical axis, or None: every channel)."""
+    if sharded(x):
+        xa = ("batch", None, channels)
+        return local(causal_conv1d, [(None, channels), xa, xa], xa)(
+            w, x, tail)
     k = w.shape[0]
     if tail is None:
         tail = x.new_zeros((x.shape[0], k - 1, x.shape[2]))
@@ -794,6 +1018,7 @@ def ssd_reference(x, dt, A, B, C, D, *, init_state=None):
     return y.to(x.dtype), hs
 
 
+@traced_source
 def ssd_chunked(x, dt, A, B, C, D, *, chunk: int = 128, init_state=None):
     """Chunked SSD (state-space duality) — the parallel formulation.
 
@@ -856,6 +1081,21 @@ def ssd_chunked(x, dt, A, B, C, D, *, chunk: int = 128, init_state=None):
     return y.to(x.dtype), hs
 
 
+def _ssd_scan(xh, dt, A, Bm, Cm, D, chunk: int, init_state):
+    """:func:`ssd_chunked`; under logical rules on each rank's rows and
+    SSD heads (the heads are independent; B and C are every rank's)."""
+    if not sharded(xh):
+        return ssd_chunked(xh, dt, A, Bm, Cm, D, chunk=chunk,
+                           init_state=init_state)
+    xa, ha = ("batch", None, "ssm_heads", None), ("ssm_heads",)
+    ga, sa = ("batch", None, None, None), ("batch", "ssm_heads", None, None)
+    return local(lambda x_, dt_, a_, b_, c_, d_, h_: ssd_chunked(
+        x_, dt_, a_, b_, c_, d_, chunk=chunk, init_state=h_),
+        [xa, ("batch", None, "ssm_heads"), ha, ga, ga, ha, sa],
+        [xa, sa])(xh, dt, A, Bm, Cm, D, init_state)
+
+
+@traced_source
 def mamba2_block(p: Params, x: torch.Tensor, cfg, *, ssm_state=None,
                  conv_tail=None, return_state: bool = False):
     """Full Mamba2 sublayer.  x [B,S,d] → y [B,S,d]; with
@@ -865,29 +1105,31 @@ def mamba2_block(p: Params, x: torch.Tensor, cfg, *, ssm_state=None,
     B_, S, d = x.shape
     di, H = cfg.ssm_d_inner, cfg.ssm_heads
     N, G, P = cfg.ssm_state, cfg.ssm_groups, cfg.ssm_head_dim
-    z = x @ p["w_z"].to(x.dtype)
-    xin = x @ p["w_x"].to(x.dtype)
+    z = constrain(x @ p["w_z"].to(x.dtype), "batch", None, "inner")
+    xin = constrain(x @ p["w_x"].to(x.dtype), "batch", None, "inner")
     Bc = x @ p["w_B"].to(x.dtype)
     Cc = x @ p["w_C"].to(x.dtype)
-    dt_raw = x @ p["w_dt"].to(x.dtype)
+    dt_raw = constrain(x @ p["w_dt"].to(x.dtype),
+                       "batch", None, "ssm_heads")
     km1 = cfg.ssm_conv - 1
     new_tail = ({"x": xin[:, -km1:], "B": Bc[:, -km1:], "C": Cc[:, -km1:]}
                 if return_state else None)
     tails = conv_tail or {"x": None, "B": None, "C": None}
-    xin = causal_conv1d(p["conv_x"], xin, tail=tails["x"])
+    xin = causal_conv1d(p["conv_x"], xin, tail=tails["x"], channels="inner")
     Bc = causal_conv1d(p["conv_B"], Bc, tail=tails["B"])
     Cc = causal_conv1d(p["conv_C"], Cc, tail=tails["C"])
 
-    xh = xin.reshape(B_, S, H, P)
+    xh = constrain(xin.reshape(B_, S, H, P), "batch", None, "ssm_heads",
+                   None)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     Bm = Bc.reshape(B_, S, G, N)
     Cm = Cc.reshape(B_, S, G, N)
-    y, final_state = ssd_chunked(xh, dt, A, Bm, Cm, p["D"],
-                                 chunk=cfg.ssm_chunk, init_state=ssm_state)
+    y, final_state = _ssd_scan(xh, dt, A, Bm, Cm, p["D"], cfg.ssm_chunk,
+                               ssm_state)
     y = y.reshape(B_, S, di)
     y = rms_norm(p["norm"], y * F.silu(z), cfg.norm_eps)
-    out = y @ p["out_proj"].to(x.dtype)
+    out = out_proj(y, p["out_proj"])
     if return_state:
         return out, final_state, new_tail
     return out
@@ -901,6 +1143,7 @@ def _conv_decode(w: torch.Tensor, tail: torch.Tensor, new: torch.Tensor
     return out.to(new.dtype), full[:, 1:]
 
 
+@traced_source
 def mamba2_decode_step(p: Params, x: torch.Tensor, cfg, *,
                        ssm_state: torch.Tensor,
                        conv_tail: Dict[str, torch.Tensor]):
@@ -931,7 +1174,7 @@ def mamba2_decode_step(p: Params, x: torch.Tensor, cfg, *,
     y = y + xh.float() * p["D"][None, :, None]
     y = y.reshape(B_, 1, di).to(x.dtype)
     y = rms_norm(p["norm"], y * F.silu(z), cfg.norm_eps)
-    out = y @ p["out_proj"].to(x.dtype)
+    out = out_proj(y, p["out_proj"])
     return out, hnew, new_tail
 
 
@@ -944,25 +1187,92 @@ def init_embed(gen: torch.Generator, V: int, d: int, device=None) -> Params:
     return {"table": embed_init(gen, (V, d), device=device)}
 
 
+@traced_source
 def embed(p: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
     """Rows of the table (tokens must lie in ``[0, V)``: the reference's
-    ``jnp.take`` would clamp, torch raises), cast to ``dtype``."""
-    return F.embedding(tokens, p["table"]).to(dtype)
+    ``jnp.take`` would clamp, torch raises), cast to ``dtype``.  Under
+    logical rules each rank looks up the tokens its slice of a
+    vocabulary-split table holds, and the ranks' rows are summed over
+    'model' (Megatron's vocabulary-parallel embedding), so the
+    activations leave replicated."""
+    table = p["table"]
+    if not sharded(table):
+        return F.embedding(tokens, table).to(dtype)
+    vocab = _split_axes(table, 0)
+
+    def lookup(t, w):
+        if vocab is None:
+            return F.embedding(t, w).to(dtype)
+        idx = t.long() - mesh_coordinate(vocab) * w.shape[0]
+        inside = (idx >= 0) & (idx < w.shape[0])
+        rows = F.embedding(idx.clamp(0, w.shape[0] - 1), w)
+        return mesh_sum((rows * inside[..., None]).to(dtype), vocab)
+    return local(lookup, [("batch",) + (None,) * (tokens.ndim - 1), None],
+                 ("batch",) + (None,) * tokens.ndim)(tokens, table)
 
 
+@traced_source
 def unembed(table: torch.Tensor, x: torch.Tensor, dtype) -> torch.Tensor:
     """Logits in x's dtype (a bfloat16 forward rounds them to bfloat16),
     then cast to ``dtype``."""
     return (x @ table.t().to(x.dtype)).to(dtype)
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean token NLL.  logits [B,S,V] (any float dtype), labels [B,S]."""
+@traced_source
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each token's NLL [B,S] in float32.  logits [B,S,V] (any float
+    dtype), labels [B,S].  Under logical rules the vocabulary may be
+    split over 'model': each rank reduces its slice and the ranks
+    combine the max, the sum and the gold logit (Megatron's
+    vocabulary-parallel cross-entropy)."""
+    if sharded(logits):
+        axis = active_rules().get("vocab")
+        if axis is not None and logits.shape[-1] % mesh_size(axis):
+            axis = None
+        return local(lambda l_, y_: _VocabParallelNLL.apply(l_, y_, axis),
+                     [("batch", None, "vocab"), ("batch", None)],
+                     ("batch", None))(logits, labels)
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     gold = lf.gather(-1, labels.long()[..., None])[..., 0]
-    nll = lse - gold
+    return lse - gold
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """Token NLL of one rank's vocabulary slice [b,s,V/m]: the forward
+    all-reduces the max, the exponentials' sum and the gold logit over
+    the bound "vocab" axis; the backward, ``softmax − onehot``, is each
+    rank's own slice."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, axis):
+        lf = logits.float()
+        vl = lf.shape[-1]
+        m = mesh_reduce(lf.amax(dim=-1), "max", axis)
+        se = mesh_reduce(torch.exp(lf - m[..., None]).sum(dim=-1), "sum",
+                         axis)
+        lse = m + torch.log(se)
+        idx = labels.long() - mesh_coordinate(axis) * vl
+        inside = (idx >= 0) & (idx < vl)
+        idx = idx.clamp(0, vl - 1)
+        gold = lf.gather(-1, idx[..., None])[..., 0] * inside
+        gold = mesh_reduce(gold, "sum", axis)
+        ctx.save_for_backward(logits, lse, idx, inside)
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, dnll):
+        logits, lse, idx, inside = ctx.saved_tensors
+        p = torch.exp(logits.float() - lse[..., None])
+        onehot = F.one_hot(idx, p.shape[-1]) * inside[..., None]
+        grad = (p - onehot) * dnll[..., None]
+        return grad.to(logits.dtype), None, None
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token NLL.  logits [B,S,V] (any float dtype), labels [B,S]."""
+    nll = token_nll(logits, labels)
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
@@ -982,6 +1292,12 @@ def chunked_loss(table: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
     for c in range(S // chunk):
         sl = slice(c * chunk, (c + 1) * chunk)
         lf = unembed(table, x[:, sl], logits_dtype).float()
+        if sharded(lf):
+            tot = tot + token_nll(lf, labels[:, sl]).sum()
+            continue
+        # the gather before the logsumexp: their backward then runs in
+        # the order that keeps one chunk's gradient fewer alive (1 GB
+        # at llama3.2-1b's B2 x S4096)
         gold = lf.gather(-1, labels[:, sl].long()[..., None])[..., 0]
         tot = tot + (torch.logsumexp(lf, dim=-1) - gold).sum()
     return tot / (B * S)

@@ -95,8 +95,8 @@ def _block_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
                                   chunk_k=cfg.attn_chunk_k,
                                   causal_skip=cfg.causal_skip)
     B, S = x.shape[:2]
-    x = x + o.reshape(B, S, cfg.num_heads * cfg.hd) @ \
-        p["attn"]["wo"].to(x.dtype)
+    x = x + L.out_proj(o.reshape(B, S, cfg.num_heads * cfg.hd),
+                       p["attn"]["wo"])
 
     h = L.rms_norm(p["ln2"], x, cfg.norm_eps)
     if "moe" in p:
@@ -120,7 +120,7 @@ def _embed_inputs(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
         x = torch.where(batch["vision_mask"][..., None], ve, x)
     positions = batch.get("positions")
     if positions is None:
-        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        positions = L.token_positions(tokens)
         if cfg.mrope_sections:
             positions = positions[None].expand(3, B, S)
     return x, positions
@@ -194,8 +194,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
     h, _aux, kv = hidden(cfg, params, batch, collect_kv=True)
     k, v = kv                                       # [L,B,S,K,hd]
     S = k.shape[2]
-    cache["k"][:, :, :S] = k
-    cache["v"][:, :, :S] = v
+    L.write_prefix(cache["k"], k)
+    L.write_prefix(cache["v"], v)
     cache = dict(cache, pos=torch.full((), S, dtype=torch.int32,
                                        device=cache["k"].device))
     if logit_pos is None:
@@ -233,8 +233,8 @@ def _decode_blocks(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         write(k_c, k)
         write(v_c, v)
         o = L.decode_attention(q, k_c, v_c, pos + 1)
-        x = x + o.reshape(B, 1, cfg.num_heads * cfg.hd) @ \
-            p["attn"]["wo"].to(x.dtype)
+        x = x + L.out_proj(o.reshape(B, 1, cfg.num_heads * cfg.hd),
+                           p["attn"]["wo"])
         h = L.rms_norm(p["ln2"], x, cfg.norm_eps)
         if "moe" in p:
             m, _ = L.moe_layer(p["moe"], h, cfg)

@@ -24,6 +24,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.models import tree
+from repro_torch.models.tracing import traced_source
 
 
 @dataclass(frozen=True)
@@ -55,6 +56,7 @@ def warmup_cosine(cfg: AdamWConfig) -> Callable[[Any], torch.Tensor]:
     return schedule
 
 
+@traced_source
 def clip_by_global_norm(grads, max_norm: float) -> Tuple[Any, torch.Tensor]:
     """``(grads · min(1, max_norm / norm), norm)``, the norm taken over
     every leaf in float32; a new tree in the leaves' dtypes."""
@@ -77,6 +79,7 @@ def adamw_init(params) -> Dict[str, Any]:
 
 
 @torch.no_grad()
+@traced_source
 def adamw_update(cfg: AdamWConfig, grads, opt_state, params,
                  schedule: Optional[Callable] = None):
     """One AdamW step.  Returns ``(params, opt_state, lr)``: the

@@ -12,9 +12,15 @@ written under ``torch.no_grad``, and the returned state holds those
 same tensors with a new ``count`` and ``step``.  A state given to a
 step belongs to that step; use the one it returns.  At llama3.2-1b's
 width the state is 19.8 GB, and a functional copy of it every step
-would cost as much.  The sharded gradient accumulator of the
-reference's ``grad_specs`` needs a mesh, which the port does not have
-yet.
+would cost as much.
+
+The same step runs on ``DTensor`` state (the dry-run traces it for one
+rank of a mesh): every gradient is redistributed out of the partial
+sums autograd leaves it in — to the parameter's own placements, or
+with ``grad_specs`` (the reference's sharded accumulator) to the spec's
+placements, ZeRO's, before it is added to the sum, so each
+microbatch's data-parallel reduction is a reduce-scatter.  A batch in
+DTensors splits into microbatches on each rank's rows.
 """
 from __future__ import annotations
 
@@ -22,8 +28,10 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.distributed.logical import is_dtensor
 from repro_torch.models import tree
 from repro_torch.models.api import ModelApi
+from repro_torch.models.tracing import repeated, traced_source
 from .optimizer import (AdamWConfig, adamw_init, adamw_update,
                         clip_by_global_norm, warmup_cosine)
 
@@ -45,13 +53,53 @@ def make_init_fn(api: ModelApi, opt_cfg: AdamWConfig
 
 def _split_microbatches(batch: Dict[str, Any], n: int) -> Dict[str, Any]:
     """[B, ...] → [n, B/n, ...] per leaf (M-RoPE positions [3,B,S] →
-    [n, 3, B/n, S])."""
+    [n, 3, B/n, S]).  A ``DTensor`` leaf splits each rank's own rows:
+    its microbatch i holds the i-th n-th of every rank's rows."""
     def split(x):
         if x.ndim >= 3 and x.shape[0] == 3:          # M-RoPE positions
             return x.reshape(3, n, x.shape[1] // n,
                              *x.shape[2:]).transpose(0, 1)
         return x.reshape(n, x.shape[0] // n, *x.shape[1:])
-    return {k: split(v) for k, v in batch.items()}
+
+    def split_local(x):
+        from torch.distributed.tensor import DTensor, Shard
+        pl = [Shard(p.dim + 1) if p.is_shard() else p for p in x.placements]
+        return DTensor.from_local(split(x.to_local()), x.device_mesh, pl,
+                                  run_check=False)
+    return {k: split_local(v) if is_dtensor(v) else split(v)
+            for k, v in batch.items()}
+
+
+def _placed(grads, like):
+    """Each ``DTensor`` gradient redistributed to the placements of the
+    matching leaf of ``like`` (a tree of tensors or of specs); plain
+    gradients pass through."""
+    from repro_torch.distributed.partition import placements
+
+    def place(g, target):
+        if not is_dtensor(g):
+            return g
+        want = (placements(target, g.device_mesh)
+                if isinstance(target, tuple) else list(target.placements))
+        return g if list(g.placements) == want \
+            else g.redistribute(g.device_mesh, want)
+    return _map_specs(place, grads, like)
+
+
+def _map_specs(fn, grads, like):
+    """``tree.map`` over a tree whose leaves in ``like`` may be spec
+    tuples (which ``tree.map`` would walk into)."""
+    if isinstance(grads, dict):
+        return {k: _map_specs(fn, v, like[k]) for k, v in grads.items()}
+    return fn(grads, like)
+
+
+@traced_source
+def backward(loss: torch.Tensor, leaves):
+    """``d loss / d leaves`` (zeros for a leaf the loss does not
+    reach)."""
+    return torch.autograd.grad(loss, leaves, allow_unused=True,
+                               materialize_grads=True)
 
 
 def _grad_fn(api: ModelApi):
@@ -63,9 +111,7 @@ def _grad_fn(api: ModelApi):
         alias = tree.map(lambda p: p.detach().requires_grad_(), params)
         with torch.enable_grad():
             loss, metrics = api.loss(alias, batch)
-            grads = torch.autograd.grad(loss, tree.flatten(alias),
-                                        allow_unused=True,
-                                        materialize_grads=True)
+            grads = backward(loss, tree.flatten(alias))
         metrics = {k: v.detach() for k, v in metrics.items()}
         return (loss.detach(), metrics), tree.unflatten(alias, grads)
     return grad_fn
@@ -75,26 +121,30 @@ def make_train_step(api: ModelApi, opt_cfg: AdamWConfig,
                     num_microbatches: int = 1, grad_specs=None):
     """``train_step(state, batch) → (state, metrics)``, ``metrics``
     holding ``loss``, ``grad_norm``, ``lr``, ``nll`` and ``aux`` as
-    tensors on the device.  ``grad_specs`` (a sharding of the gradient
-    accumulator) needs a mesh and must be None."""
-    if grad_specs is not None:
-        raise ValueError("grad_specs (a sharded gradient accumulator) is "
-                         "not yet ported (#7)")
+    tensors on the device.  ``grad_specs``: a tree of specs (the
+    reference's PartitionSpecs as tuples) for the gradient
+    accumulator of ``DTensor`` state; each microbatch's gradient is
+    redistributed to it before it is summed."""
     schedule = warmup_cosine(opt_cfg)
     grad_fn = _grad_fn(api)
 
     def train_step(state: TrainState, batch: Dict[str, Any]
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         params = state["params"]
+        if grad_specs is not None and not is_dtensor(tree.flatten(params)[0]):
+            raise ValueError("grad_specs place DTensor gradients: the state "
+                             "must be DTensors on a mesh")
+        target = params if grad_specs is None else grad_specs
         if num_microbatches > 1:
             micro = _split_microbatches(batch, num_microbatches)
-            grads = tree.map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = _placed(tree.map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params), target)
             loss = torch.zeros((), dtype=torch.float32,
                                device=state["step"].device)
-            for i in range(num_microbatches):
+            for i in repeated(list(range(num_microbatches))):
                 (l, _m), g = grad_fn(params, {k: v[i]
                                               for k, v in micro.items()})
+                g = _placed(g, target)
                 tree.map(lambda a, b: a.add_(b.float()), grads, g)
                 loss = loss + l
             grads = tree.map(lambda g: g / num_microbatches, grads)
@@ -102,6 +152,7 @@ def make_train_step(api: ModelApi, opt_cfg: AdamWConfig,
             metrics = {"nll": loss, "aux": torch.zeros_like(loss)}
         else:
             (loss, metrics), grads = grad_fn(params, batch)
+            grads = _placed(grads, target)
 
         grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip)
         new_params, new_opt, lr = adamw_update(

@@ -106,11 +106,24 @@ def two_scopes(monkeypatch, tmp_path):
                  "BENCH_RESULTS_DIR", "BENCH_BASELINE", "BENCH_REPORT"):
         monkeypatch.delenv(knob, raising=False)
     monkeypatch.chdir(tmp_path)
+    from repro_torch.core.hooks import HOOKS
     specs, values = dict(FLAGS._specs), dict(FLAGS._values)
+    hooks = list(HOOKS._pre_parse), list(HOOKS._post_parse)
     benches = dict(REGISTRY._benchmarks)
+    # start as a new process does (core flags only): a scope an earlier
+    # test in this process loaded left its flags declared, and loading
+    # it again would fail
+    for name in [n for n, spec in FLAGS._specs.items()
+                 if spec.owner != "core"]:
+        del FLAGS._specs[name]
+        FLAGS._values.pop(name, None)
+    HOOKS._pre_parse[:] = [h for h in HOOKS._pre_parse if h[0] == "core"]
+    HOOKS._post_parse[:] = [h for h in HOOKS._post_parse if h[0] == "core"]
+    REGISTRY._benchmarks.clear()
     yield tmp_path
     FLAGS._specs.clear(), FLAGS._specs.update(specs)
     FLAGS._values.clear(), FLAGS._values.update(values)
+    HOOKS._pre_parse[:], HOOKS._post_parse[:] = hooks
     REGISTRY._benchmarks.clear(), REGISTRY._benchmarks.update(benches)
 
 

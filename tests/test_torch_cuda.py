@@ -1021,3 +1021,47 @@ def test_report_over_a_card_run_names_the_card(cuda, tmp_path):
         marks = [e for e in ET.parse(str(report / image)).getroot().iter()
                  if "mark" in e.get("class", "").split()]
         assert marks, image
+
+
+def test_dryrun_one_card_flops_match_a_real_step(cuda):
+    """A two-layer llama3.2-1b train cell on a one-rank mesh of the card
+    (the dry-run's trace on fake ``cuda`` tensors) against
+    ``FlopCounterMode`` over one real step of the same configuration:
+    within 1 %."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.inputs import ShapeSpec
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build, get_config
+    from repro_torch.train import AdamWConfig, make_init_fn, make_train_step
+    base = get_config("llama3.2-1b").override(num_layers=2)
+    spec = ShapeSpec("train_4k", 1024, 2, "train")
+    with make_host_mesh(1, device_type="cuda") as mesh:
+        _, meta = dryrun.lower_cell("llama3.2-1b", "train_4k", mesh=mesh,
+                                    spec=spec, device="cuda", cfg=base)
+    assert meta["status"] == "ok" and meta["microbatches"] == 1
+    cfg = dryrun.tune_config(base, "train_4k", {})
+    api = build(cfg)
+    opt = AdamWConfig()
+    state = make_init_fn(api, opt)(torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 1024), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    with FlopCounterMode(display=False) as counter:
+        make_train_step(api, opt)(state, {"tokens": tokens,
+                                          "labels": tokens})
+    real = counter.get_total_flops()
+    assert abs(meta["roofline"]["hlo_flops"] - real) <= 0.01 * real
+
+
+def test_dryrun_decode_cell_traces_on_fake_cuda_tensors(cuda):
+    """llama3.2-1b's decode_32k cell on the 16×16 production mesh, its
+    fake tensors on the card's device: ``ok``, the cache split by
+    position and never gathered."""
+    from repro_torch.launch import dryrun
+    traced, meta = dryrun.lower_cell("llama3.2-1b", "decode_32k",
+                                     device="cuda")
+    assert meta["status"] == "ok" and meta["mesh"] == "pod16x16"
+    assert all(a.device.type == "cuda" for a in traced.args)
+    cache = 2 * 16 * (128 // 16) * (32768 // 16) * 8 * 64 * 2
+    assert max(meta["roofline"]["per_kind"].values()) < cache / 100

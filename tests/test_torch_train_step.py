@@ -353,6 +353,12 @@ def test_train_step_updates_state_in_place():
 
 
 def test_grad_specs_are_not_ported():
+    """``grad_specs`` shard a DTensor gradient accumulator: a step given
+    them refuses plain (one-device) state."""
     _, cfg = configs("llama3.2-1b")
-    with pytest.raises(ValueError, match="not yet ported"):
-        make_train_step(build(cfg), AdamWConfig(), grad_specs={})
+    api = build(cfg)
+    state = make_init_fn(api, AdamWConfig())(torch.Generator().manual_seed(0))
+    step = make_train_step(api, AdamWConfig(), num_microbatches=2,
+                           grad_specs={})
+    with pytest.raises(ValueError, match="DTensors on a mesh"):
+        step(state, to_torch(make_batch(cfg)))
