@@ -103,7 +103,7 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      ``torch.profiler``: the device's idle share over its activity
      window;
  12. the run pipeline, through ``python -m repro_torch`` in child
-     processes over the linalg, mxu and histo scopes at
+     processes over the linalg and mxu scopes at
      ``--benchmark_min_time 0.02``: ``plan`` lists the instances
      ``--benchmark_list_tests`` lists; a ``--jobs 2 --shard-grain
      benchmark --isolate pool`` run writes a ``merged.json`` with the
@@ -119,7 +119,8 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      walls;
  13. the tune phase: ``python -m repro_torch tune <family> --budget 8
      --benchmark_min_time 0.02 --no-report`` in a child process for each
-     of ``TUNE_FAMILIES`` (mxu's with ``--param n=1024``), with
+     of ``TUNE_FAMILIES`` (mxu's matmul with ``--param n=1024``, and
+     flash attention's ``ffma`` tiles; phase 18 tunes RMSNorm), with
      ``REPRO_TUNED_DIR`` under ``build/`` so that no ``tuned.json`` lands
      in the source tree (checked); each must exit 0 with no failed trial
      and write its winner under the card's name and the variant it ran.
@@ -187,13 +188,13 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      kernel lies on this path (the reference's train step calls no
      Pallas kernel);
  18. report: two runs, ``a`` then ``b``, of the ``REPORT_SCOPES``
-     (mxu, histo, serve) in one results directory under a temporary
+     (mxu, serve) in one results directory under a temporary
      directory (``run --meters wall,cpu,latency --slo-ms 200``), then the
      port's ScopePlot over them, every CLI step in a child that cannot
      import matplotlib or yaml (``sys.modules[name] = None``): ``report
      b`` writes ``report.md`` and ``index.html``; every image it names
      exists, parses as XML and holds a mark per series of its spec;
-     mxu, histo and serve each have times, trend and speedup plots and
+     mxu and serve each have times, trend and speedup plots and
      serve its latency CDF; the System table shows the card's
      ``device_kind`` and ``cuda_version``; the verdict table lists every
      instance of ``b``.  ``report history`` renders; ``python -m
@@ -203,8 +204,8 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      run's report; ``REPORT_TUNE`` tuned once with its report leaves
      ``tune_speedup.svg``; the dashboard (``create_server`` on port 0 in
      a thread) answers 200 to ``/``, ``/api/runs`` and ``/api/status``.
-     No kernel is launched by the report itself: the mxu and histo rows
-     it reports ran the matmul and histogram kernels;
+     No kernel is launched by the report itself: the mxu rows it
+     reports ran the matmul kernel;
  19. lint: ``python -m repro_torch lint --strict --format json --device
      cuda`` over the ten scopes in a child must exit 0 with no error or
      warning, its only findings the SCOPE203 infos of the two families
@@ -217,13 +218,14 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      before and read just after, must exit 0 with every record free of
      error and all five kernels launched; a planted scope whose one
      family traces to no compute on its operand (SCOPE201) makes ``run
-     --lint`` exit 1 and write nothing; the paper's harness (``python -m
-     repro_torch.benchmarks.run``) over the ten scopes in a child must
-     exit 0 with no failed scope and the Fig. 3 SVG; ``serve_demo`` of
-     llama3.2-1b at its published width and depth (``reduced=False``)
-     must finish its 16 requests of 16 tokens; and each of the four
-     examples (``python -m repro_torch.examples.<name> --device cuda``,
-     their defaults but train_lm's 300 steps, cut to 60) must exit 0.  One
+     --lint`` exit 1 and write nothing; ``serve_demo`` of llama3.2-1b
+     at its published width and depth (``reduced=False``) must finish
+     its 16 requests of 16 tokens; then, side by side in children, the
+     paper's harness (``python -m repro_torch.benchmarks.run``) over the
+     ten scopes must exit 0 with no failed scope and the Fig. 3 SVG,
+     and each of the four examples (``python -m
+     repro_torch.examples.<name> --device cuda``, their defaults but
+     train_lm's 300 steps, cut to 30) must exit 0.  One
      ``{"lint": ...}`` line holds each step's exit code and wall, the
      findings by severity, the families traced and kernel nodes seen,
      the launches, the harness's lines and ``serve_demo``'s stats;
@@ -246,14 +248,39 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      ``dryrun_rooflines`` is a record with ``cells`` ≥ 6 (phase 10 ran
      before any cell existed and checked the skip).  (d) ``python -m
      repro_torch.roofline.report --dir <dir>`` exits 0 and prints the
-     roofline table.  One ``{"dryrun": ...}`` line;
- 21. a ``{"host_path_us": ..., "main_path_idle": ...}`` line, a
+     roofline table.  The three children start before phase 18 and run
+     beside phases 18 and 19 (the traces use the CPU alone).  One
+     ``{"dryrun": ...}`` line;
+ 21. multi-rank runtime on one card: (a) the gradient codecs (bf16,
+     and int8 with error feedback) over llama3.2-1b's full-width
+     parameter tree as a gradient's stand-in on the card, their bytes
+     and ms, the embedding and layer 0's ``w_up`` bit-equal to the CPU
+     codec; then, in a child with a launcher's environment for one rank
+     (``WORLD_SIZE`` 1, as ``torchrun --standalone --nproc-per-node 1``
+     sets it), which joins a one-rank NCCL group
+     (``launch.mesh.launcher_group``): (b) deepseek-moe-16b at its
+     published width, ``num_layers`` cut to ``MOE_LAYERS``: the
+     expert-parallel ``moe_layer`` on the (1, 1) mesh within
+     ``MOE_TOL`` of ``moe_scatter`` in float32 at ``MOE_CHECK``, both
+     timed in bf16 at ``MOE_TIME``, and one meshed train step whose
+     loss is within ``TRAIN_FIRST_LOSS_TOL`` of ``api.loss`` on its
+     weights and batch; (c) phase 17's run on the meshed trainer
+     (DTensor state), ``MULTIRANK_STEPS`` steps with a sharded save at
+     the last: the first loss within ``TRAIN_FIRST_LOSS_TOL`` of phase
+     17's, every loss and grad_norm finite, the checkpoint read back by
+     ``load_checkpoint`` with every crc verified; the step's median ms,
+     ``max_memory_allocated`` and one profiled step beside phase 17's;
+     (d) phase 17's resume check (halted at step 7 of 14, resumed
+     through ``restore_resharded``) within ``TRAIN_RESUME_TOL``.  One
+     ``{"multirank": ...}`` line;
+ 22. a ``{"host_path_us": ..., "main_path_idle": ...}`` line, a
      ``{"models": [...]}`` line (phase 8's rows), a ``{"serve": ...}``
      line (phases 15 and 16), a ``{"train": ...}`` line (phase 17), a
      ``{"report": ...}`` line (phase 18: each step's wall, the plots
      and SVG bytes written, whether the host can import matplotlib and
      yaml), the ``{"lint": ...}`` line (phase 19), the ``{"dryrun":
-     ...}`` line (phase 20), then one
+     ...}`` line (phase 20), the ``{"multirank": ...}`` line (phase
+     21), then one
      ``{"kernels": [...]}`` line: per kernel its launches on the main
      path (with each variant's, for matmul, flash attention and SSD), its
      largest error against the plain version, and its time,
@@ -262,7 +289,7 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      instantiated tile under ``tiles``).
      ``ms`` is the time per call of back-to-back calls through the
      wrapper (CUDA events), ``device_ms`` the kernels alone (profiler);
- 22. last line: ``{"ok": true, "device": {...}}``.
+ 23. last line: ``{"ok": true, "device": {...}}``.
 
 Every comparison holds the kernel to its plain version on the same
 inputs with ``atol = rtol = tol``, ``tol`` being the reference's own
@@ -1309,7 +1336,7 @@ def phase_idle_share() -> dict:
 
 #: The run pipeline's scopes and their timing: each instance is
 #: calibrated to fill ``PIPELINE_MIN_TIME`` seconds.
-PIPELINE_SCOPES = ["mxu", "histo", "linalg"]
+PIPELINE_SCOPES = ["mxu", "linalg"]
 PIPELINE_MIN_TIME = "0.02"
 
 
@@ -1605,11 +1632,12 @@ def phase_incremental() -> dict:
     return facts
 
 
-#: The tune phase: each tunable family of the main path's scopes, with
-#: the arguments that narrow its instance, searched through the CLI.
+#: The tune phase: tunable families of the main path's scopes (the
+#: matmul and flash attention kernels' tiles; phase 18 tunes RMSNorm's
+#: rows), with the arguments that narrow each instance, searched
+#: through the CLI.
 TUNE_FAMILIES = [("mxu/matmul", ["--param", "n=1024"]),
-                 ("linalg/matmul_rect", []), ("nn/rmsnorm", []),
-                 ("nn/flash_attention_cuda", []), ("nn/ssd_scan_cuda", [])]
+                 ("nn/flash_attention_cuda", [])]
 TUNE_ARGS = ["--budget", "8", "--benchmark_min_time", "0.02", "--no-report"]
 #: Artifacts and trial records of the tune phase: under build/, never in
 #: the source tree.
@@ -1814,15 +1842,18 @@ def forward_flops(cfg, B, S) -> float:
         + causal_attention_flops(cfg, B, S)
 
 
-def profile_step(fn, top: int = 8) -> dict:
+def profile_step(fn, top: int = 8, ops: bool = True) -> dict:
     """One call of ``fn`` under ``torch.profiler``: the device's busy
-    time and idle share over the call's wall, and the ``top`` aten ops
-    by the device time of the kernels they launched (ms)."""
+    time and idle share over the call's wall, and (with ``ops``, which
+    traces the host's ops too) the ``top`` aten ops by the device time
+    of the kernels they launched (ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if ops:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1838,14 +1869,14 @@ def profile_step(fn, top: int = 8) -> dict:
         elif b > reach:
             busy += b - reach
             reach = b
-    ops = sorted(((e.key, e.self_device_time_total / 1e3)
-                  for e in prof.key_averages()
-                  if e.key.startswith("aten::")
-                  and e.self_device_time_total > 0),
-                 key=lambda kv: -kv[1])
+    by_op = sorted(((e.key, e.self_device_time_total / 1e3)
+                    for e in prof.key_averages()
+                    if e.key.startswith("aten::")
+                    and e.self_device_time_total > 0),
+                   key=lambda kv: -kv[1]) if ops else []
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e6,
             "idle_share": 1 - busy / 1e9 / wall, "kernels": len(spans),
-            "device_ms_by_op": dict(ops[:top])}
+            "device_ms_by_op": dict(by_op[:top])}
 
 
 def phase_models(hw: dict) -> list:
@@ -2282,7 +2313,7 @@ def phase_serve_scope() -> dict:
 #: (seed 0), ``TRAIN_STEPS`` steps at lr ``TRAIN_LR``.  Step times are
 #: the median from the third step on.
 TRAIN_ARCH = "llama3.2-1b"
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 4096, 10, 3e-4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 2, 4096, 6, 3e-4
 TRAIN_OVERRIDES = {"remat": "full", "loss_chunk": 1024}
 #: (a) the first step's loss against ``api.loss`` under inference_mode
 #: on the same weights and batch.
@@ -2487,6 +2518,12 @@ def phase_train(hw: dict) -> dict:
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("float32 products must not run in TF32 here")
     t_phase = time.perf_counter()
+    # this phase measures the one-card trainer: the default group the
+    # main path's comm scope left up (phase 10) would put train() on its
+    # meshed path (phase 21 measures that one)
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
     cfg = get_config(TRAIN_ARCH).override(**TRAIN_OVERRIDES)
     api = build(cfg)
     batch0 = _on(_train_batches(cfg, 1, TRAIN_BATCH, TRAIN_SEQ)[0], "cuda")
@@ -2588,11 +2625,11 @@ def phase_train(hw: dict) -> dict:
 #: (the mxu and histo rows launch the matmul and histogram kernels; serve
 #: carries the latency meter's counters), then the port's ScopePlot over
 #: them, each CLI step in a child that cannot import matplotlib or yaml.
-REPORT_SCOPES = ["mxu", "histo", "serve"]
+REPORT_SCOPES = ["mxu", "serve"]
 REPORT_RUN_ARGS = ["--meters", "wall,cpu,latency", "--slo-ms", "200",
                    "--benchmark_min_time", PIPELINE_MIN_TIME]
-#: The family tuned once with its report (the quickest of TUNE_FAMILIES).
-REPORT_TUNE = TUNE_FAMILIES[2]
+#: The family tuned once with its report (a quick one).
+REPORT_TUNE = ("nn/rmsnorm", [])
 #: ``python -c`` program: ``python -m <argv[1]> <argv[2:]>`` with
 #: matplotlib and yaml made unimportable before the CLI starts.
 BLOCKED_CLI = ("import runpy, sys\n"
@@ -2839,9 +2876,9 @@ LINT_RUN_SCOPES = ["mxu", "histo", "nn", "linalg"]
 #: their SCOPE203 infos are the only findings the lint may report.
 LINT_OPAQUE = {"example/axpy", "serve/under_load"}
 #: The examples, each with its defaults but for these arguments
-#: (train_lm's 300 steps cut to 60: the phase checks that it runs).
+#: (train_lm's 300 steps cut to 30: the phase checks that it runs).
 EXAMPLES = {"quickstart": [], "characterize": [], "serve_lm": [],
-            "train_lm": ["--steps", "60"]}
+            "train_lm": ["--steps", "30"]}
 #: A scope whose one family the trace tier refuses (SCOPE201): its
 #: callable sums a constant, whatever its operand.
 PLANTED = "chip_smoke_planted_scope"
@@ -2874,19 +2911,38 @@ def fresh_cli_state():
         REGISTRY._benchmarks.clear(), REGISTRY._benchmarks.update(saved[4])
 
 
+def start_module(module, *args, cwd, env_extra=None):
+    """``python -m <module> <args>`` from the checkout's ``src``, started
+    in a child working in ``cwd``: (its start time, the child)."""
+    env = dict(os.environ, **(env_extra or {}), PYTHONPATH=os.pathsep.join(
+        filter(None, [os.path.join(ROOT, "src"),
+                      os.environ.get("PYTHONPATH")])))
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", module, *args], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=cwd)
+
+
+def finish_module(t0, child, timeout=600) -> subprocess.CompletedProcess:
+    """The finished child of :func:`start_module`; its wall on
+    ``wall_s``."""
+    try:
+        stdout, stderr = child.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.wait()
+        raise
+    r = subprocess.CompletedProcess(child.args, child.returncode, stdout,
+                                    stderr)
+    r.wall_s = time.perf_counter() - t0
+    return r
+
+
 def python_module(module, *args, cwd, env_extra=None
                   ) -> subprocess.CompletedProcess:
     """``python -m <module> <args>`` from the checkout's ``src`` in a
     child working in ``cwd``; its wall on ``wall_s``."""
-    env = dict(os.environ, **(env_extra or {}), PYTHONPATH=os.pathsep.join(
-        filter(None, [os.path.join(ROOT, "src"),
-                      os.environ.get("PYTHONPATH")])))
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", module, *args],
-                       capture_output=True, text=True, env=env, cwd=cwd,
-                       timeout=600)
-    r.wall_s = time.perf_counter() - t0
-    return r
+    return finish_module(*start_module(module, *args, cwd=cwd,
+                                       env_extra=env_extra))
 
 
 def zero_launches() -> None:
@@ -3021,22 +3077,6 @@ def phase_lint() -> dict:
     row["planted"] = {"rc": rc, "wall_s": wall, "results_written": written}
     log(f"planted SCOPE201 family: run --lint exit {rc} in {wall:.2f} s, "
         f"nothing written")
-    # (d) the paper's harness over the ten scopes
-    with tempfile.TemporaryDirectory() as tmp:
-        r = python_module("repro_torch.benchmarks.run", cwd=tmp)
-        lines = r.stdout.splitlines()
-        failed = [line for line in lines if "/SCOPE_FAILED," in line]
-        fig = os.path.join(tmp, "results", "fig3_saxpy.svg")
-        if r.returncode != 0 or failed or not os.path.exists(fig):
-            raise AssertionError(f"harness exited {r.returncode}, failed "
-                                 f"scopes {failed}:\n{r.stderr[-3000:]}")
-    rows = [line for line in lines if "," in line]
-    row["harness"] = {"rc": r.returncode, "wall_s": r.wall_s,
-                      "lines": len(rows),
-                      "scopes": sorted({line.split(",")[0].split("/")[0]
-                                        for line in rows})}
-    log(f"harness: exit 0 in {r.wall_s:.1f} s, {len(rows)} lines, no "
-        f"failed scope, fig3 written")
     # (e) serve_demo at full width
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3048,13 +3088,42 @@ def phase_lint() -> dict:
     row["serve_demo"] = {"wall_s": wall, **stats}
     torch.cuda.empty_cache()
     log(f"serve_demo llama3.2-1b full width: {stats} in {wall:.1f} s")
-    # (f) the four examples
+    # (d) the paper's harness over the ten scopes and (f) the four
+    # examples, side by side (each is checked for its exit and output)
+    with contextlib.ExitStack() as stack:
+        dirs = {name: stack.enter_context(tempfile.TemporaryDirectory())
+                for name in ["harness", *EXAMPLES]}
+        started = {"harness": start_module("repro_torch.benchmarks.run",
+                                           cwd=dirs["harness"])}
+        for name, args in EXAMPLES.items():
+            started[name] = start_module(
+                f"repro_torch.examples.{name}", "--device", "cuda", *args,
+                cwd=dirs[name], env_extra={"TMPDIR": dirs[name]})
+        try:
+            done = {name: finish_module(*child)
+                    for name, child in started.items()}
+        finally:
+            for _, child in started.values():
+                if child.poll() is None:
+                    child.kill()
+                    child.wait()
+        r = done["harness"]
+        lines = r.stdout.splitlines()
+        failed = [line for line in lines if "/SCOPE_FAILED," in line]
+        fig = os.path.join(dirs["harness"], "results", "fig3_saxpy.svg")
+        if r.returncode != 0 or failed or not os.path.exists(fig):
+            raise AssertionError(f"harness exited {r.returncode}, failed "
+                                 f"scopes {failed}:\n{r.stderr[-3000:]}")
+    rows = [line for line in lines if "," in line]
+    row["harness"] = {"rc": r.returncode, "wall_s": r.wall_s,
+                      "lines": len(rows),
+                      "scopes": sorted({line.split(",")[0].split("/")[0]
+                                        for line in rows})}
+    log(f"harness: exit 0 in {r.wall_s:.1f} s, {len(rows)} lines, no "
+        f"failed scope, fig3 written")
     row["examples"] = {}
-    for name, args in EXAMPLES.items():
-        with tempfile.TemporaryDirectory() as tmp:
-            r = python_module(f"repro_torch.examples.{name}", "--device",
-                              "cuda", *args, cwd=tmp,
-                              env_extra={"TMPDIR": tmp})
+    for name in EXAMPLES:
+        r = done[name]
         if r.returncode != 0:
             raise AssertionError(f"example {name} exited {r.returncode}:"
                                  f"\n{r.stderr[-3000:]}")
@@ -3130,131 +3199,516 @@ def _cell_line(d: dict) -> str:
             f"{r['useful_ratio']:.3f}; static peak {mem['peak_bytes']:,} B")
 
 
-def phase_dryrun(hw: dict, trained: dict) -> dict:
-    """Phase 20: the dry-run's cells on the production meshes, the
-    one-card cell against a real step, the model scope and the report
-    over the cells (see the module docstring)."""
-    t_phase = time.perf_counter()
+def start_dryrun() -> dict:
+    """Phase 20's three children, started ahead of the phase (they run
+    while phases 18 and 19 do): the two meshes' traces, on fake tensors
+    (the CPU only), and the one-card cell with its real step."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         filter(None, [os.path.join(ROOT, "src"),
                       os.environ.get("PYTHONPATH")])))
-    row: dict = {"card": hw["card"], "meshes": {}}
-    with tempfile.TemporaryDirectory(prefix="dryrun-") as out:
-        children = {}
-        for mesh, extra in DRYRUN_MESHES.items():
-            children[mesh] = (time.perf_counter(), subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.dryrun",
-                 "--arch", DRYRUN_ARCH, "--shape", "all", "--device",
-                 "cuda", "--out", out, *extra], env=env, cwd=ROOT,
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        one_card = (time.perf_counter(), subprocess.Popen(
-            [sys.executable, "-c",
-             "import json, chip_smoke; "
-             "print(json.dumps(chip_smoke.dryrun_one_card()))"],
-            env=env, cwd=ROOT, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True))
-        for mesh, (t0, child) in children.items():
-            try:
-                stdout, stderr = child.communicate(timeout=DRYRUN_TIMEOUT_S)
-            finally:
-                child.kill()
-            wall = time.perf_counter() - t0
-            if child.returncode != 0:
-                raise AssertionError(
-                    f"dryrun {mesh} exited {child.returncode}:\n"
-                    f"{stdout[-2000:]}\n{stderr[-3000:]}")
-            row["meshes"][mesh] = {"wall_s": wall}
-            log(f"dryrun {DRYRUN_ARCH} --shape all on {mesh}: exit 0 in "
-                f"{wall:.1f} s")
-        cells = {}
-        for path in sorted(glob.glob(os.path.join(out, "*.json"))):
-            with open(path) as f:
-                d = json.load(f)
-            cells[(d["shape"], d["mesh"])] = d
-        for mesh in DRYRUN_MESHES:
-            for shape in DRYRUN_OK_SHAPES:
-                d = cells.get((shape, mesh))
-                if d is None or d["status"] != "ok":
-                    raise AssertionError(f"dryrun {shape} on {mesh}: {d}")
-                log("  " + _cell_line(d))
-            skip = cells.get(("long_500k", mesh))
-            if skip is None or skip["status"] != "skip" or \
-                    not skip["reason"].startswith("long_500k skipped"):
-                raise AssertionError(f"dryrun long_500k on {mesh}: {skip}")
-        row["cells"] = [cells[k] for k in sorted(cells)]
-        slowest = max((d for d in cells.values() if d["status"] == "ok"),
-                      key=lambda d: d["compile_s"])
-        row["slowest"] = f"{slowest['shape']} {slowest['mesh']}"
-        log(f"  slowest trace: {row['slowest']} ({slowest['compile_s']} s)")
+    out = tempfile.mkdtemp(prefix="dryrun-")
+    children = {}
+    for mesh, extra in DRYRUN_MESHES.items():
+        children[mesh] = (time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun",
+             "--arch", DRYRUN_ARCH, "--shape", "all", "--device",
+             "cuda", "--out", out, *extra], env=env, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    one_card = (time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-c",
+         "import json, chip_smoke; "
+         "print(json.dumps(chip_smoke.dryrun_one_card()))"],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True))
+    return {"out": out, "children": children, "one_card": one_card}
 
-        # (b) one card: the cell's FLOPs against a real step's
-        t0, child = one_card
+
+def stop_dryrun(started: dict) -> None:
+    """Kill whatever :func:`start_dryrun` started and remove its
+    directory."""
+    for _, child in [*started["children"].values(), started["one_card"]]:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    shutil.rmtree(started["out"], ignore_errors=True)
+
+
+def phase_dryrun(hw: dict, trained: dict, started: dict) -> dict:
+    """Phase 20: the dry-run's cells on the production meshes, the
+    one-card cell against a real step, the model scope and the report
+    over the cells (see the module docstring), from the children
+    :func:`start_dryrun` started."""
+    t_phase = time.perf_counter()
+    row: dict = {"card": hw["card"], "meshes": {}}
+    out, children, one_card = (started["out"], started["children"],
+                               started["one_card"])
+    for mesh, (t0, child) in children.items():
         try:
             stdout, stderr = child.communicate(timeout=DRYRUN_TIMEOUT_S)
         finally:
             child.kill()
+        # started before phases 18-19: the child ran beside them
+        wall = time.perf_counter() - t0
         if child.returncode != 0:
-            raise AssertionError(f"dryrun one-card child exited "
-                                 f"{child.returncode}:\n{stderr[-3000:]}")
-        one = json.loads(stdout.strip().splitlines()[-1])
-        cell = one["cell"]
-        traced_flops = cell["roofline"]["hlo_flops"]
-        real = one["real_step_flops"]
-        flop_err = abs(traced_flops - real) / real
-        bound_ms = 1e3 * max(cell["roofline"][k] for k in (
-            "compute_s", "memory_s", "collective_s"))
-        one.update(flop_rel_err=flop_err, bound_ms=bound_ms,
-                   phase17_step_ms=trained["ms"],
-                   phase17_max_memory_allocated=trained[
-                       "max_memory_allocated"])
-        row["one_card"] = one
-        log("  one card: " + _cell_line(cell))
-        log(f"  one card: traced FLOPs {traced_flops:.6g} against "
-            f"FlopCounterMode over one real step {real:.6g}: relative "
-            f"{flop_err:.3g} (tol {DRYRUN_FLOP_RTOL}); static peak "
-            f"{cell['memory']['peak_bytes']:,} B beside phase 17's "
-            f"max_memory_allocated {trained['max_memory_allocated']:,} B; "
-            f"bound {bound_ms:.2f} ms beside phase 17's step "
-            f"{trained['ms']:.2f} ms")
-        if not flop_err <= DRYRUN_FLOP_RTOL:
             raise AssertionError(
-                f"dryrun one-card FLOPs {traced_flops} against the real "
-                f"step's {real}: {flop_err:.3g} > {DRYRUN_FLOP_RTOL}")
+                f"dryrun {mesh} exited {child.returncode}:\n"
+                f"{stdout[-2000:]}\n{stderr[-3000:]}")
+        row["meshes"][mesh] = {"done_within_s": wall}
+        log(f"dryrun {DRYRUN_ARCH} --shape all on {mesh}: exit 0, done "
+            f"within {wall:.1f} s of its start (beside phases 18-19)")
+    cells = {}
+    for path in sorted(glob.glob(os.path.join(out, "*.json"))):
+        with open(path) as f:
+            d = json.load(f)
+        cells[(d["shape"], d["mesh"])] = d
+    for mesh in DRYRUN_MESHES:
+        for shape in DRYRUN_OK_SHAPES:
+            d = cells.get((shape, mesh))
+            if d is None or d["status"] != "ok":
+                raise AssertionError(f"dryrun {shape} on {mesh}: {d}")
+            log("  " + _cell_line(d))
+        skip = cells.get(("long_500k", mesh))
+        if skip is None or skip["status"] != "skip" or \
+                not skip["reason"].startswith("long_500k skipped"):
+            raise AssertionError(f"dryrun long_500k on {mesh}: {skip}")
+    row["cells"] = [cells[k] for k in sorted(cells)]
+    slowest = max((d for d in cells.values() if d["status"] == "ok"),
+                  key=lambda d: d["compile_s"])
+    row["slowest"] = f"{slowest['shape']} {slowest['mesh']}"
+    log(f"  slowest trace: {row['slowest']} ({slowest['compile_s']} s)")
 
-        # (c) the model scope reads the cells
-        doc = os.path.join(out, "model_scope.json")
-        r = checked_run("run", "--enable-scope", "model",
-                        "--benchmark_filter", "dryrun_rooflines",
-                        "--model.dryrun_dir", out, "--results-dir", "",
-                        "--benchmark_out", doc)
-        with open(doc) as f:
-            (rec,) = json.load(f)["benchmarks"]
-        ok_cells = sum(d["status"] == "ok" for d in cells.values())
-        if rec.get("skipped") or rec.get("error_occurred") or \
-                rec["cells"] < 6 or rec["cells"] != ok_cells:
-            raise AssertionError(f"model/dryrun_rooflines over the cells: "
-                                 f"{rec}")
-        row["model_scope"] = {"cells": rec["cells"],
-                              "sum_bound_s": rec["sum_bound_s"],
-                              "wall_s": r.wall_s}
-        log(f"  model/dryrun_rooflines: cells {rec['cells']}, sum_bound_s "
-            f"{rec['sum_bound_s']:.6g} ({r.wall_s:.1f} s)")
+    # (b) one card: the cell's FLOPs against a real step's
+    t0, child = one_card
+    try:
+        stdout, stderr = child.communicate(timeout=DRYRUN_TIMEOUT_S)
+    finally:
+        child.kill()
+    if child.returncode != 0:
+        raise AssertionError(f"dryrun one-card child exited "
+                             f"{child.returncode}:\n{stderr[-3000:]}")
+    one = json.loads(stdout.strip().splitlines()[-1])
+    cell = one["cell"]
+    traced_flops = cell["roofline"]["hlo_flops"]
+    real = one["real_step_flops"]
+    flop_err = abs(traced_flops - real) / real
+    bound_ms = 1e3 * max(cell["roofline"][k] for k in (
+        "compute_s", "memory_s", "collective_s"))
+    one.update(flop_rel_err=flop_err, bound_ms=bound_ms,
+               phase17_step_ms=trained["ms"],
+               phase17_max_memory_allocated=trained[
+                   "max_memory_allocated"])
+    row["one_card"] = one
+    log("  one card: " + _cell_line(cell))
+    log(f"  one card: traced FLOPs {traced_flops:.6g} against "
+        f"FlopCounterMode over one real step {real:.6g}: relative "
+        f"{flop_err:.3g} (tol {DRYRUN_FLOP_RTOL}); static peak "
+        f"{cell['memory']['peak_bytes']:,} B beside phase 17's "
+        f"max_memory_allocated {trained['max_memory_allocated']:,} B; "
+        f"bound {bound_ms:.2f} ms beside phase 17's step "
+        f"{trained['ms']:.2f} ms")
+    if not flop_err <= DRYRUN_FLOP_RTOL:
+        raise AssertionError(
+            f"dryrun one-card FLOPs {traced_flops} against the real "
+            f"step's {real}: {flop_err:.3g} > {DRYRUN_FLOP_RTOL}")
 
-        # (d) the report over the cells
-        rep = python_module("repro_torch.roofline.report", "--dir", out,
-                            cwd=ROOT)
-        if rep.returncode != 0 or \
-                f"| {DRYRUN_ARCH} | train_4k | ok |" not in rep.stdout:
-            raise AssertionError(f"roofline.report exited "
-                                 f"{rep.returncode}:\n{rep.stdout[-2000:]}"
-                                 f"\n{rep.stderr[-2000:]}")
-        row["report"] = {"wall_s": rep.wall_s,
-                         "lines": len(rep.stdout.splitlines())}
-        for line in rep.stdout.splitlines():
-            if line.startswith(f"| {DRYRUN_ARCH}"):
-                log("  " + line)
+    # (c) the model scope reads the cells
+    doc = os.path.join(out, "model_scope.json")
+    r = checked_run("run", "--enable-scope", "model",
+                    "--benchmark_filter", "dryrun_rooflines",
+                    "--model.dryrun_dir", out, "--results-dir", "",
+                    "--benchmark_out", doc)
+    with open(doc) as f:
+        (rec,) = json.load(f)["benchmarks"]
+    ok_cells = sum(d["status"] == "ok" for d in cells.values())
+    if rec.get("skipped") or rec.get("error_occurred") or \
+            rec["cells"] < 6 or rec["cells"] != ok_cells:
+        raise AssertionError(f"model/dryrun_rooflines over the cells: "
+                             f"{rec}")
+    row["model_scope"] = {"cells": rec["cells"],
+                          "sum_bound_s": rec["sum_bound_s"],
+                          "wall_s": r.wall_s}
+    log(f"  model/dryrun_rooflines: cells {rec['cells']}, sum_bound_s "
+        f"{rec['sum_bound_s']:.6g} ({r.wall_s:.1f} s)")
+
+    # (d) the report over the cells
+    rep = python_module("repro_torch.roofline.report", "--dir", out,
+                        cwd=ROOT)
+    if rep.returncode != 0 or \
+            f"| {DRYRUN_ARCH} | train_4k | ok |" not in rep.stdout:
+        raise AssertionError(f"roofline.report exited "
+                             f"{rep.returncode}:\n{rep.stdout[-2000:]}"
+                             f"\n{rep.stderr[-2000:]}")
+    row["report"] = {"wall_s": rep.wall_s,
+                     "lines": len(rep.stdout.splitlines())}
+    for line in rep.stdout.splitlines():
+        if line.startswith(f"| {DRYRUN_ARCH}"):
+            log("  " + line)
     row["phase_s"] = time.perf_counter() - t_phase
     log(f"dryrun phase: {row['phase_s']:.1f} s")
+    return row
+
+
+#: Phase 21, the multi-rank runtime on one card.  (a) The gradient
+#: codecs over llama3.2-1b's full-width parameter tree (1.24e9 float32
+#: values, a gradient's stand-in) on the card; two leaves held to the
+#: CPU codec bit for bit.
+CODEC_LEAVES = (("embed", "table"), ("blocks", "mlp", "w_up"))
+#: (b) deepseek-moe-16b at its published width (d 2048, 64 experts,
+#: top-6, expert d_ff 1408, 2 shared) with ``num_layers`` cut to
+#: ``MOE_LAYERS``: the layer in float32 at B x S ``MOE_CHECK`` against
+#: ``moe_scatter`` within ``MOE_TOL``, its ms both ways in bf16 at
+#: ``MOE_TIME``, and one meshed train step at ``MOE_STEP``.
+MOE_ARCH, MOE_LAYERS = "deepseek-moe-16b", 2
+MOE_CHECK, MOE_TIME, MOE_STEP = (1, 512), (2, 4096), (1, 512)
+MOE_TOL = 1e-5
+#: (c) the meshed trainer at phase 17's shape and policy, full width and
+#: depth, ``MULTIRANK_STEPS`` steps with a sharded save at the last;
+#: (d) phase 17's resume check (reduced llama, 2 layers, float32) on
+#: the meshed path.
+MULTIRANK_STEPS = 4
+MULTIRANK_TIMEOUT_S = 900
+
+
+def _cuda_ms(fn, reps: int = 3):
+    """(the last result, the median ms of ``reps`` fenced calls)."""
+    times, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, sorted(times)[len(times) // 2]
+
+
+def _leaf(t, path):
+    for k in path:
+        t = t[k]
+    return t
+
+
+def codec_checks(hw: dict) -> dict:
+    """Phase 21 (a): both codecs over the full-width tree on the card,
+    their bytes and ms; the embedding and layer 0's ``w_up`` through
+    the CPU codec, bit-equal."""
+    from repro_torch.distributed import compression as C
+    from repro_torch.models import build, get_config, tree
+    cfg = get_config(TRAIN_ARCH)
+    grads = build(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    n = sum(t.numel() for t in tree.flatten(grads))
+    bf16, bf16_ms = _cuda_ms(lambda: C.bf16_compress(grads))
+    _, bf16_back_ms = _cuda_ms(lambda: C.bf16_decompress(bf16))
+    (packed, err), int8_ms = _cuda_ms(lambda: C.ef_compress_tree(grads))
+    _, int8_back_ms = _cuda_ms(lambda: C.ef_decompress_tree(packed, grads))
+    int8_bytes = sum(p["q"].numel() + 4 * p["scale"].numel() + 4
+                     for p in C.packed_leaves(packed))
+    equal = {}
+    for path in CODEC_LEAVES:
+        g = _leaf(grads, path)
+        if path[0] == "blocks":                 # layer 0 of the stack
+            g = g[0]
+        cpu = g.to("cpu")
+        cp, ce = (t["g"] for t in C.ef_compress_tree({"g": cpu}))
+        blocks = cp["q"].shape[0]
+        card_p, card_e = _leaf(packed, path), _leaf(err, path)
+        card_e = card_e[0] if path[0] == "blocks" else card_e
+        equal["/".join(path)] = bool(
+            torch.equal(card_p["q"][:blocks].cpu(), cp["q"])
+            and torch.equal(card_p["scale"][:blocks].cpu(), cp["scale"])
+            and torch.equal(card_e.cpu(), ce)
+            and torch.equal(C.bf16_compress(cpu).view(torch.int16),
+                            C.bf16_compress(g).cpu().view(torch.int16)))
+    del grads, bf16, packed, err
+    torch.cuda.empty_cache()
+    row = {"values": n, "float32_bytes": 4 * n, "bf16_bytes": 2 * n,
+           "int8_bytes": int8_bytes, "int8_ratio": 4 * n / int8_bytes,
+           "bf16_compress_ms": bf16_ms, "bf16_decompress_ms": bf16_back_ms,
+           "int8_ef_compress_ms": int8_ms,
+           "int8_ef_decompress_ms": int8_back_ms,
+           "bit_equal_to_cpu": equal}
+    log(f"multirank (a) codecs over {TRAIN_ARCH}'s {n:,} float32 values "
+        f"on {hw['card']}: {4 * n:,} B; bf16 {2 * n:,} B, compress "
+        f"{bf16_ms:.2f} ms, decompress {bf16_back_ms:.2f} ms; int8 with "
+        f"error feedback {int8_bytes:,} B ({row['int8_ratio']:.3f}x), "
+        f"compress {int8_ms:.2f} ms, decompress {int8_back_ms:.2f} ms; "
+        f"bit-equal to the CPU codec: {equal}")
+    if not all(equal.values()):
+        raise AssertionError(f"multirank (a): card codec differs from the "
+                             f"CPU's: {equal}")
+    return row
+
+
+def _moe_checks() -> dict:
+    """Phase 21 (b), in the launcher's child: deepseek-moe-16b's MoE
+    layer at full width on the (1, 1) mesh of a one-rank NCCL group."""
+    from repro_torch.distributed import logical, partition as part
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.models import build, get_config
+    from repro_torch.models import layers as L
+    cfg = get_config(MOE_ARCH).override(num_layers=MOE_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = L.init_moe(gen, cfg.d_model, cfg.moe_num_experts, cfg.moe_d_ff,
+                   cfg.moe_num_shared)
+    out: dict = {"arch": MOE_ARCH, "layers": MOE_LAYERS,
+                 "d_model": cfg.d_model, "experts": cfg.moe_num_experts,
+                 "top_k": cfg.moe_top_k, "moe_d_ff": cfg.moe_d_ff,
+                 "shared": cfg.moe_num_shared,
+                 "reduced": f"num_layers {cfg.num_layers} of "
+                            f"{get_config(MOE_ARCH).num_layers}"}
+
+    def scatter(x):
+        return L.moe_scatter(p, x, top_k=cfg.moe_top_k,
+                             capacity_factor=cfg.moe_capacity_factor,
+                             act=cfg.act, n_shared=cfg.moe_num_shared)[0]
+    with make_host_mesh(1, device_type="cuda") as mesh:
+        c32 = cfg.override(dtype="float32")
+        rules = logical.default_rules(c32, mesh)
+        if rules["experts"] != "model":
+            raise AssertionError(f"experts not on 'model': {rules}")
+        dp = part.distribute_tree(p, part.param_specs(cfg, {"moe": p},
+                                                      mesh)["moe"], mesh)
+        B, S = MOE_CHECK
+        x = torch.randn(B, S, cfg.d_model, generator=gen, device="cuda")
+        with torch.no_grad(), logical.logical_rules(rules):
+            y = L.moe_layer(dp, part.distribute(x, mesh, (
+                "data", None, None)), c32)[0].full_tensor()
+            err = float((y - scatter(x)).abs().max())
+        out["float32_max_abs_err"] = err
+        B, S = MOE_TIME
+        xb = torch.randn(B, S, cfg.d_model, generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+        dxb = part.distribute(xb, mesh, ("data", None, None))
+        with torch.no_grad(), logical.logical_rules(rules):
+            out["bf16_ms"] = {
+                "moe_shard_map": time_ms(lambda: L.moe_layer(dp, dxb, cfg)),
+                "moe_scatter": time_ms(lambda: scatter(xb))}
+    del p, dp
+    torch.cuda.empty_cache()
+    # one meshed train step against the inference loss on its weights
+    B, S = MOE_STEP
+    api = build(cfg)
+    params = api.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = _on(_train_batches(cfg, 1, B, S)[0], "cuda")
+    with torch.inference_mode():
+        want = float(api.loss(params, batch)[0])
+    del params
+    torch.cuda.empty_cache()
+    res = train(MOE_ARCH, steps=1, global_batch=B, seq_len=S, lr=TRAIN_LR,
+                reduced=False, overrides={"num_layers": MOE_LAYERS},
+                log_every=1, seed=0, device="cuda")
+    h = res["history"][0]
+    out["step"] = {"batch": B, "seq": S, "loss": h["loss"],
+                   "grad_norm": h["grad_norm"], "loss_inference": want,
+                   "ms": h["seconds"] * 1e3}
+    torch.cuda.empty_cache()
+    return out
+
+
+def _meshed_train(first_loss: float) -> dict:
+    """Phase 21 (c), in the launcher's child: phase 17's run on the
+    meshed path, a sharded save at its last step, read back with every
+    checksum; then one profiled step of the same state on the mesh."""
+    from repro_torch.checkpoint import CheckpointManager, load_checkpoint
+    from repro_torch.checkpoint.store import load_manifest
+    from repro_torch.distributed import partition as part
+    from repro_torch.distributed.logical import default_rules, logical_rules
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build, get_config
+    from repro_torch.train import AdamWConfig, make_init_fn, make_train_step
+    cfg = get_config(TRAIN_ARCH).override(**TRAIN_OVERRIDES)
+    ckpt = tempfile.mkdtemp(prefix="multirank-", dir=os.path.join(ROOT,
+                                                                  "build"))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        res = train_mod.train(
+            TRAIN_ARCH, steps=MULTIRANK_STEPS, global_batch=TRAIN_BATCH,
+            seq_len=TRAIN_SEQ, lr=TRAIN_LR, reduced=False,
+            overrides=TRAIN_OVERRIDES, log_every=1, seed=0, device="cuda",
+            ckpt_dir=ckpt, ckpt_every=MULTIRANK_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        mgr = CheckpointManager(ckpt)
+        path = mgr.path_for(MULTIRANK_STEPS)
+        t0 = time.perf_counter()
+        _, step = load_checkpoint(path, train_mod._state_like(cfg),
+                                  verify=True)
+        load_s = time.perf_counter() - t0
+        manifest = load_manifest(path)
+        ckpt_bytes = sum(os.path.getsize(os.path.join(path, f))
+                         for f in os.listdir(path))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    hist = res["history"]
+    times = [h["seconds"] * 1e3 for h in hist]
+    steady = sorted(times[2:])
+    out = {"steps": len(hist), "loss": [h["loss"] for h in hist],
+           "grad_norm": [h["grad_norm"] for h in hist],
+           "step_ms": times, "ms": steady[len(steady) // 2],
+           "max_memory_allocated": peak,
+           "first_loss_abs_err": abs(hist[0]["loss"] - first_loss),
+           "trainer_seconds": res["seconds"],
+           "checkpoint": {"step": step, "bytes": ckpt_bytes,
+                          "leaves": len(manifest["leaves"]),
+                          "process_count": manifest["process_count"],
+                          "load_verify_s": load_s}}
+    # one profiled step on a fresh state on the mesh
+    api = build(cfg)
+    opt = AdamWConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS, warmup_steps=5)
+    batch0 = _train_batches(cfg, 1, TRAIN_BATCH, TRAIN_SEQ)[0]
+    with make_host_mesh(1, device_type="cuda") as mesh:
+        like = train_mod._state_like(cfg)
+        specs = train_mod._state_specs(cfg, like, mesh)
+        held = {"state": part.distribute_tree(make_init_fn(api, opt)(
+            torch.Generator(device="cuda").manual_seed(0)), specs, mesh)}
+        dbatch = part.distribute_tree(
+            batch0, part.input_specs_tree(cfg, batch0, mesh), mesh)
+        step_fn = make_train_step(api, opt, grad_specs=specs["opt"]["m"])
+        t0 = time.perf_counter()
+        with logical_rules(default_rules(cfg, mesh)):
+            def one_step():
+                held["state"], m = step_fn(held["state"], dbatch)
+                return float(m["loss"].full_tensor())
+            # the kernels are warm from the trainer's steps; the device
+            # alone is traced
+            out["profiled_step"] = profile_step(one_step, ops=False)
+        out["profile_s"] = time.perf_counter() - t0
+        del held["state"]
+    torch.cuda.empty_cache()
+    return out
+
+
+def _elastic_resume() -> dict:
+    """Phase 21 (d), in the launcher's child: phase 17's (d) on the
+    meshed path, the resume through ``restore_resharded``."""
+    from repro_torch.launch.train import train
+    kw = dict(steps=14, global_batch=2, seq_len=32, lr=1e-3, seed=5,
+              log_every=100, device="cuda",
+              overrides={"num_layers": 2, "dtype": "float32"})
+    full = train(TRAIN_ARCH, **kw)
+    ckpt = tempfile.mkdtemp(prefix="multirank-resume-",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        half = train(TRAIN_ARCH, ckpt_dir=ckpt, ckpt_every=7, halt_at=7,
+                     **kw)
+        resumed = train(TRAIN_ARCH, ckpt_dir=ckpt, ckpt_every=7, **kw)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return {"full_last_loss": full["last_loss"],
+            "resumed_last_loss": resumed["last_loss"],
+            "halted_steps": half["steps"], "resumed_steps": resumed["steps"],
+            "abs_err": abs(resumed["last_loss"] - full["last_loss"])}
+
+
+def multirank_child(first_loss: float) -> dict:
+    """Phase 21 (b)–(d) in a process a launcher started
+    (``WORLD_SIZE`` 1): it joins the one-rank NCCL group
+    (``launcher_group``) and runs every check on the meshed path."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import launcher_group
+    if launcher_group("cuda") != 1 or dist.get_backend() != "nccl":
+        raise AssertionError("no one-rank NCCL group from the launcher")
+    try:
+        out = {"backend": dist.get_backend(),
+               "world_size": dist.get_world_size()}
+        for name, fn in (("moe", _moe_checks),
+                         ("train", lambda: _meshed_train(first_loss)),
+                         ("resume", _elastic_resume)):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            out[name]["wall_s"] = time.perf_counter() - t0
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_multirank(hw: dict, trained: dict) -> dict:
+    """Phase 21: the multi-rank runtime on one card (see the module
+    docstring): (a) here, (b)–(d) in a child with a launcher's
+    environment for one rank (as ``torchrun --standalone
+    --nproc-per-node 1`` sets it)."""
+    t_phase = time.perf_counter()
+    row = {"card": hw["card"], "codecs": codec_checks(hw)}
+    env = dict(os.environ, WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+               LOCAL_WORLD_SIZE="1", MASTER_ADDR="localhost",
+               MASTER_PORT=str(_free_port()),
+               PYTHONPATH=os.pathsep.join(filter(None, [
+                   os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH")])))
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-c",
+         "import json, sys, chip_smoke; print(json.dumps("
+         "chip_smoke.multirank_child(float(sys.argv[1]))))",
+         repr(trained["loss"][0])],
+        env=env, cwd=ROOT, capture_output=True, text=True,
+        timeout=MULTIRANK_TIMEOUT_S)
+    if r.returncode != 0:
+        raise AssertionError(f"multirank child exited {r.returncode}:\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    child = json.loads(r.stdout.strip().splitlines()[-1])
+    row.update(child, child_wall_s=time.perf_counter() - t0)
+    moe, tr, res = child["moe"], child["train"], child["resume"]
+    step = moe["step"]
+    moe_step_err = abs(step["loss"] - step["loss_inference"])
+    log(f"multirank (b) {MOE_ARCH} at full width ({moe['reduced']}) on a "
+        f"one-rank {child['backend']} mesh (1, 1): the expert-parallel "
+        f"layer float32 B{MOE_CHECK[0]} x S{MOE_CHECK[1]} against "
+        f"moe_scatter: max abs err {moe['float32_max_abs_err']:.3g} (tol "
+        f"{MOE_TOL}); bf16 B{MOE_TIME[0]} x S{MOE_TIME[1]}: moe_shard_map "
+        f"{moe['bf16_ms']['moe_shard_map']:.3f} ms, moe_scatter "
+        f"{moe['bf16_ms']['moe_scatter']:.3f} ms; one meshed train step "
+        f"B{step['batch']} x S{step['seq']}: loss {step['loss']:.6f} "
+        f"(inference {step['loss_inference']:.6f}, {moe_step_err:.3g}), "
+        f"grad_norm {step['grad_norm']:.4f}, {step['ms']:.1f} ms; "
+        f"{moe['wall_s']:.1f} s")
+    log(f"multirank (c) {TRAIN_ARCH} full width, B{TRAIN_BATCH} x "
+        f"S{TRAIN_SEQ}, {tr['steps']} meshed steps on (1, 1): median "
+        f"{tr['ms']:.2f} ms a step from step 3 (phase 17 "
+        f"{trained['ms']:.2f} ms); steps " + ", ".join(
+            f"{t:.1f}" for t in tr["step_ms"])
+        + f"; max_memory_allocated {tr['max_memory_allocated']:,} B (phase "
+        f"17 {trained['max_memory_allocated']:,} B); loss "
+        + ", ".join(f"{v:.4f}" for v in tr["loss"])
+        + f"; first loss against phase 17's: {tr['first_loss_abs_err']:.3g}"
+        f" (tol {TRAIN_FIRST_LOSS_TOL}); checkpoint step "
+        f"{tr['checkpoint']['step']}, {tr['checkpoint']['bytes']:,} B, "
+        f"{tr['checkpoint']['leaves']} leaves, read back with every crc in "
+        f"{tr['checkpoint']['load_verify_s']:.1f} s; the trainer "
+        f"{tr['trainer_seconds']:.1f} s (the save's wait included), the "
+        f"profiled step {tr['profile_s']:.1f} s; {tr['wall_s']:.1f} s")
+    prof = tr["profiled_step"]
+    log(f"  profiled meshed step: wall {prof['wall_ms']:.2f} ms, device "
+        f"busy {prof['device_busy_ms']:.2f} ms (idle share "
+        f"{prof['idle_share']:.4f}), {prof['kernels']} kernels (phase 17: "
+        f"{trained['profiled_step']['wall_ms']:.2f} ms, "
+        f"{trained['profiled_step']['device_busy_ms']:.2f} busy, "
+        f"{trained['profiled_step']['kernels']} kernels)")
+    log(f"multirank (d) resume on the meshed path: halted after "
+        f"{res['halted_steps']} steps, resumed for {res['resumed_steps']}; "
+        f"last loss {res['resumed_last_loss']:.6f} against the "
+        f"uninterrupted {res['full_last_loss']:.6f}: {res['abs_err']:.3g} "
+        f"(tol {TRAIN_RESUME_TOL}); {res['wall_s']:.1f} s")
+    finite = all(math.isfinite(v) for v in tr["loss"] + tr["grad_norm"]
+                 + [step["loss"], step["grad_norm"]])
+    if not (moe["float32_max_abs_err"] <= MOE_TOL and finite
+            and moe_step_err <= TRAIN_FIRST_LOSS_TOL
+            and tr["steps"] == MULTIRANK_STEPS
+            and tr["first_loss_abs_err"] <= TRAIN_FIRST_LOSS_TOL
+            and tr["checkpoint"]["step"] == MULTIRANK_STEPS
+            and tr["checkpoint"]["process_count"] == 1
+            and res["halted_steps"] == 7 and res["resumed_steps"] == 7
+            and res["abs_err"] <= TRAIN_RESUME_TOL):
+        raise AssertionError(f"multirank: {child}")
+    row["phase_s"] = time.perf_counter() - t_phase
+    log(f"multirank phase: {row['phase_s']:.1f} s")
     return row
 
 
@@ -3273,9 +3727,14 @@ def main() -> int:
     serve = phase_serve(hw)
     serve["scope_child"] = phase_serve_scope()
     trained = phase_train(hw)
-    report = phase_report()
-    linted = phase_lint()
-    dry = phase_dryrun(hw, trained)
+    started = start_dryrun()
+    try:
+        report = phase_report()
+        linted = phase_lint()
+        dry = phase_dryrun(hw, trained, started)
+    finally:
+        stop_dryrun(started)
+    multirank = phase_multirank(hw, trained)
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["sass"] = sass[k["name"]]
@@ -3292,6 +3751,7 @@ def main() -> int:
     print(json.dumps({"report": report}), flush=True)
     print(json.dumps({"lint": linted}), flush=True)
     print(json.dumps({"dryrun": dry}), flush=True)
+    print(json.dumps({"multirank": multirank}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

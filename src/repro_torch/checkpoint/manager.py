@@ -5,10 +5,14 @@ the port's :mod:`~repro_torch.checkpoint.store` in the reference's
 on-disk format.  The contract is the reference's:
 
   * ``maybe_save`` snapshots the state to the host (synchronously: one
-    ``t.detach().to("cpu", copy=True)`` a tensor leaf, taken before the
-    caller's next step can write the tensors in place, as the
-    reference's ``jax.device_get`` is taken before the buffers are
-    donated) and writes the files on a background thread;
+    ``t.detach().to("cpu", copy=True)`` a tensor leaf, or of this
+    rank's shard of a ``DTensor``, taken before the caller's next step
+    can write the tensors in place, as the reference's
+    ``jax.device_get`` is taken before the buffers are donated) and
+    writes the files on a background thread.  With several ranks the
+    write is made before ``maybe_save`` returns: its barriers and
+    gather are collectives of the default group, which a writer thread
+    would issue out of order with the step's;
   * a save is atomic (tmp + rename, see ``store.py``) and counts in
     ``latest_step`` only once it is on disk;
   * keep-k garbage collection never deletes the newest complete
@@ -17,7 +21,9 @@ on-disk format.  The contract is the reference's:
     final synchronous save and a clean exit, so a restart resumes
     exactly;
   * ``restore_or_init`` falls back through the checkpoints newest first,
-    skipping any that fail checksum verification (torn writes).
+    skipping any that fail checksum verification (torn writes); given a
+    mesh and specs it places the state on that mesh
+    (``restore_resharded``), whatever mesh wrote it.
 """
 from __future__ import annotations
 
@@ -32,7 +38,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.core.logging import get_logger
-from .store import load_checkpoint, save_checkpoint
+from .store import (load_checkpoint, local_shard, process_count,
+                    restore_resharded, save_checkpoint)
 
 log = get_logger("ckpt")
 
@@ -41,7 +48,11 @@ _STEP_RE = re.compile(r"step_(\d+)$")
 
 def _snapshot(tree: Any) -> Any:
     """A host copy of every tensor leaf (never a view of a CPU tensor
-    the caller may write next); other leaves as they are."""
+    the caller may write next), of this rank's shard of a ``DTensor``
+    (a ``store.LocalShard``); other leaves as they are."""
+    from repro_torch.distributed.logical import is_dtensor
+    if is_dtensor(tree):
+        return local_shard(tree, to_host=True)
     if isinstance(tree, torch.Tensor):
         return tree.detach().to("cpu", copy=True)
     if isinstance(tree, dict):
@@ -101,7 +112,7 @@ class CheckpointManager:
             except BaseException as e:  # noqa: BLE001 - raised in check()
                 self._error = e
 
-        if self.async_save:
+        if self.async_save and process_count() == 1:
             self._thread = threading.Thread(target=work, daemon=True)
             self._thread.start()
         else:
@@ -127,13 +138,18 @@ class CheckpointManager:
             log.info("gc checkpoint step %d", s)
 
     # -- restoring ------------------------------------------------------
-    def restore_or_init(self, tree_like, init_fn: Callable[[], Any]
-                        ) -> Tuple[Any, int]:
-        """Newest valid checkpoint (host tensors), else ``init_fn()`` at
-        step 0."""
+    def restore_or_init(self, tree_like, init_fn: Callable[[], Any],
+                        mesh=None, spec_tree=None) -> Tuple[Any, int]:
+        """Newest valid checkpoint, else ``init_fn()`` at step 0: host
+        tensors, or with ``mesh`` and ``spec_tree`` ``DTensor``s placed
+        on ``mesh`` by the specs."""
         for step in reversed(self.steps()):
             try:
-                tree, s = load_checkpoint(self.path_for(step), tree_like)
+                if mesh is None:
+                    tree, s = load_checkpoint(self.path_for(step), tree_like)
+                else:
+                    tree, s = restore_resharded(self.path_for(step),
+                                                tree_like, mesh, spec_tree)
                 log.info("restored checkpoint step %d", s)
                 return tree, s
             except Exception as e:  # noqa: BLE001 - fall through older ckpts

@@ -253,6 +253,28 @@ def mesh_sum(x, axis: Axis):
     return _MeshSum.apply(x, axis)
 
 
+class _MeshCopy(torch.autograd.Function):
+    """Megatron's ``f``: the forward passes a (replicated) input to each
+    rank's part; the backward sums the parts' gradients over the mesh
+    axes."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return mesh_reduce(grad, "sum", ctx.axis), None
+
+
+def mesh_copy(x, axis: Axis):
+    """``x``, replicated over the mesh axis ``axis``, as the input of
+    each rank's partial result inside a :func:`local` region: its
+    gradient is summed over ``axis`` (the pair of :func:`mesh_sum`)."""
+    return _MeshCopy.apply(x, axis)
+
+
 def mesh_mean(x, axis: Axis):
     """The mean over the mesh axis ``axis`` of a ``DTensor`` that holds
     a different value on each of its ranks (a ``local`` region's

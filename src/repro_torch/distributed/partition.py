@@ -280,7 +280,9 @@ def placements(spec: Spec, mesh) -> list:
     """DTensor placements of ``spec`` on ``mesh``: for each mesh dim,
     ``Shard(d)`` of the tensor dim whose entry names it, else
     ``Replicate()``.  A dim over ``("pod", "data")`` is sharded on both
-    mesh dims, outer first, as ``PartitionSpec`` orders it."""
+    mesh dims, outer first, as ``PartitionSpec`` orders it.  A mesh dim
+    of one rank splits nothing, so it replicates (DTensor cannot view a
+    size-1 dim sharded over it: a batch of 1 on a 1×1 mesh)."""
     from torch.distributed.tensor import Replicate, Shard
     where: Dict[str, int] = {}
     for d, entry in enumerate(spec):
@@ -294,9 +296,54 @@ def placements(spec: Spec, mesh) -> list:
     if unknown:
         raise ValueError(f"spec {spec} names axes {sorted(unknown)} that "
                          f"mesh {names} lacks")
-    return [Shard(where[n]) if n in where else Replicate() for n in names]
+    sizes = mesh_shape(mesh)
+    return [Shard(where[n]) if n in where and sizes[n] > 1 else Replicate()
+            for n in names]
 
 
 def shardings_of(specs_tree, mesh):
     """A tree of specs → a tree of placement lists on ``mesh``."""
     return map_with_path(lambda _path, s: placements(s, mesh), specs_tree)
+
+
+def distribute(t, mesh, spec):
+    """A ``DTensor`` on ``mesh`` laid out by ``spec`` from a tensor that
+    every rank holds whole (the same values on each): each rank keeps
+    its own shard on the mesh's device, and nothing moves between ranks
+    (``distribute_tensor`` would scatter rank 0's).  A part of ``t`` is
+    copied, so the rest of ``t`` can be freed; a shard that is all of a
+    contiguous ``t`` on that device is ``t`` itself."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    pl = placements(spec, mesh)
+    shape, offset = compute_local_shape_and_global_offset(t.shape, mesh, pl)
+    local = t[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+    if local.numel() != t.numel():
+        local = local.clone()
+    if local.device.type != mesh.device_type:
+        local = local.to(mesh.device_type)
+    local = local.contiguous()
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=t.shape, stride=contiguous_stride(t.shape))
+
+
+def contiguous_stride(shape) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape``."""
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def distribute_tree(tensors, specs, mesh):
+    """:func:`distribute` over a tree of tensors (dicts, lists and
+    tuples) and the matching tree of specs."""
+    if isinstance(tensors, dict):
+        return {k: distribute_tree(v, specs[k], mesh)
+                for k, v in tensors.items()}
+    if isinstance(tensors, (list, tuple)):
+        return type(tensors)(distribute_tree(v, s, mesh)
+                             for v, s in zip(tensors, specs))
+    return distribute(tensors, mesh, specs)

@@ -36,7 +36,7 @@ import sys
 import time
 import traceback
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -130,14 +130,6 @@ class TracedCell:
         return self._stats
 
 
-def _contiguous_stride(shape) -> Tuple[int, ...]:
-    stride, acc = [], 1
-    for n in reversed(shape):
-        stride.append(acc)
-        acc *= n
-    return tuple(reversed(stride))
-
-
 def _local_shape(shape, placements, mesh) -> List[int]:
     out = list(shape)
     for md, p in enumerate(placements):
@@ -178,7 +170,7 @@ def trace_step(fn: Callable, trees: List[Any], specs: List[Any], mesh,
     def step(*locals_):
         dts = [DTensor.from_local(x, mesh, pl, run_check=False,
                                   shape=m.shape,
-                                  stride=_contiguous_stride(m.shape))
+                                  stride=part.contiguous_stride(m.shape))
                for x, pl, m in zip(locals_, places, leaves)]
         it = iter(dts)
         args = [tree.unflatten(t, [next(it) for _ in tree.flatten(t)])
@@ -292,7 +284,7 @@ def cell_mesh(multi_pod: bool, overrides: Dict[str, Any],
 
 def lower_cell(arch: str, shape: str, *, multi_pod: bool = False,
                overrides: Optional[Dict[str, Any]] = None,
-               mesh=None, device: str = "cpu",
+               mesh=None, device: str = "cuda",
                spec: Optional[inp.ShapeSpec] = None,
                cfg: Optional[ModelConfig] = None):
     """Trace and analyze one (arch × shape × mesh) cell.  Returns
@@ -405,10 +397,6 @@ def _notes(cfg: ModelConfig, mesh) -> str:
                    f"spans {part.axis_size(mesh, 'model') // NVLINK_DOMAIN} "
                    f"{NVLINK_DOMAIN}-GPU NVLink domains of an H100 cluster: "
                    f"the collective term (NVLink) is a lower bound")
-    if cfg.moe_num_experts:
-        out.append("MoE: the no-mesh moe_layer on each rank's rows with "
-                   "every expert gathered (work replicated over 'model'); "
-                   "the reference's moe_shard_map is not ported yet")
     return "; ".join(out)
 
 
@@ -418,7 +406,7 @@ def _notes(cfg: ModelConfig, mesh) -> str:
 
 def run_cells(archs, shapes, multi_pod: bool, out_dir: str,
               overrides: Optional[Dict[str, Any]] = None,
-              tag: str = "", device: str = "cpu") -> int:
+              tag: str = "", device: str = "cuda") -> int:
     os.makedirs(out_dir, exist_ok=True)
     overrides = overrides or {}
     failures = 0

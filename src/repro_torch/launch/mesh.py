@@ -15,20 +15,55 @@ Mesh shapes (the reference's, TPU v5e pods):
 Axis order is outermost-first, so data-parallel gradient reductions
 decompose hierarchically (within a pod over 'data', then across 'pod').
 
-Each function is a context manager.  One that opens a group tears it
-down when its caller leaves the ``with``; a default group that is
-already up is used as it is if its size matches the mesh, and refused
-with an error if it does not.
+Each mesh function is a context manager.  One that opens a group
+tears it down when its caller leaves the ``with``; a default group that
+is already up is used as it is if its size matches the mesh, and
+refused with an error if it does not.
+
+:func:`launcher_group` joins the group a launcher (``torchrun``) set up
+for this process: the torch form of a jax process that sees several
+devices.  The trainer and the comm scope join through it.
 """
 from __future__ import annotations
 
 import contextlib
 import math
+import os
 from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+
+#: The process-group backend for each device: a run sent to the card
+#: joins an NCCL group, never a gloo one.
+BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+
+
+def launcher_group(device: str) -> Optional[int]:
+    """The world size of the default group this process belongs to, or
+    None when there is none to join.
+
+    A default group that is already up is the one (its backend must be
+    ``device``'s).  Otherwise, when ``WORLD_SIZE`` is in the
+    environment (``torchrun`` sets it, with ``RANK``, ``LOCAL_RANK``,
+    ``MASTER_ADDR`` and ``MASTER_PORT``), the process joins that group
+    by ``env://``: NCCL on the card ``LOCAL_RANK`` for ``cuda``, gloo
+    for ``cpu``.  A group joined here stays up until its caller
+    destroys it."""
+    backend = BACKENDS[device]
+    if dist.is_initialized():
+        have = dist.get_backend()
+        if have != backend:
+            raise RuntimeError(f"this process already has a {have} process "
+                               f"group; --device {device} needs {backend}")
+        return dist.get_world_size()
+    if "WORLD_SIZE" not in os.environ:
+        return None
+    if device == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group(backend, init_method="env://")
+    return dist.get_world_size()
 
 
 @contextlib.contextmanager

@@ -5,13 +5,13 @@ The forward path of the model zoo: norms (:func:`rms_norm`,
 (:func:`naive_attention`, the oracle, and :func:`flash_attention_xla`,
 the chunked online-softmax formulation with a recompute backward), the
 SwiGLU/GELU MLP, capacity-based MoE (scatter dispatch and the one-hot
-einsum oracle, with shared experts), the Mamba2 block on the SSD scans
+einsum oracle, with shared experts; the expert-parallel
+:func:`moe_shard_map` under a mesh), the Mamba2 block on the SSD scans
 (:func:`ssd_reference`, :func:`ssd_chunked`), and the embedding, the
 unembedding and the (chunked) cross-entropy; and the decode path
 (:func:`decode_attention` over a padded KV cache, :func:`mamba2_decode_step`
 with :func:`_conv_decode`); and :func:`maybe_remat`, the per-layer
-rematerialization the families apply under grad.  The expert-parallel
-``moe_shard_map`` is not ported yet.
+rematerialization the families apply under grad.
 
 Conventions are the reference's: parameters are plain dicts of float32
 tensors made by the matching ``init_*`` functions (from an explicit
@@ -31,8 +31,9 @@ carry run on each rank's shards (``logical.local``): the attention
 decode attention over a sequence-sharded cache (the flash-decode
 combine), the prompt's and the decode's cache writes, the
 vocabulary-parallel cross-entropy, the SSD scan and the convolutions,
-and the MoE layer (batch-sharded, experts gathered: the expert-parallel
-``moe_shard_map`` is not ported yet).  JAX's ``lax.scan`` loops become
+and the MoE layer (:func:`moe_shard_map`: each rank its own experts, or
+batch-sharded with every expert gathered where the experts do not
+split over the mesh).  JAX's ``lax.scan`` loops become
 Python loops; products that the
 reference takes with ``preferred_element_type=float32`` are taken on
 float32 copies of the operands, which gives the same products (a
@@ -51,9 +52,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.distributed.logical import (Placed, active_rules,
                                              constrain, is_dtensor, local,
-                                             mesh_coordinate, mesh_mean,
-                                             mesh_reduce, mesh_size,
-                                             mesh_sum, sharded)
+                                             mesh_coordinate, mesh_copy,
+                                             mesh_mean, mesh_reduce,
+                                             mesh_size, mesh_sum, sharded,
+                                             spec_of)
 from repro_torch.models.tracing import repeated, traced_source
 
 Params = Dict[str, Any]
@@ -798,17 +800,31 @@ def init_moe(gen: torch.Generator, d: int, E: int, ff: int, n_shared: int,
 def _router(p: Params, x: torch.Tensor, top_k: int
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Return (gates [...,k], expert_idx [...,k], aux_loss scalar)."""
+    gates, idx, probs = _route(p, x, top_k)
+    return gates, idx, _balance_loss(*_balance_stats(idx, probs))
+
+
+def _route(p: Params, x: torch.Tensor, top_k: int
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(gates [...,k] renormalized, expert_idx [...,k], probs [...,E])."""
     logits = x.float() @ p["router"]                          # [..., E]
     probs = torch.softmax(logits, dim=-1)
     gates, idx = torch.topk(probs, top_k, dim=-1)
-    gates = gates / gates.sum(dim=-1, keepdim=True)
-    # Switch-style load-balance loss: E * mean_e(frac_tokens_e * mean_prob_e)
+    return gates / gates.sum(dim=-1, keepdim=True), idx, probs
+
+
+def _balance_stats(idx: torch.Tensor, probs: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per expert, the share of tokens whose first choice it is and its
+    mean router probability (each [E])."""
     E = probs.shape[-1]
     onehot = F.one_hot(idx[..., 0], E).float()
-    frac = onehot.reshape(-1, E).mean(dim=0)
-    mprob = probs.reshape(-1, E).mean(dim=0)
-    aux = E * (frac * mprob).sum()
-    return gates, idx, aux
+    return onehot.reshape(-1, E).mean(dim=0), probs.reshape(-1, E).mean(dim=0)
+
+
+def _balance_loss(frac: torch.Tensor, mprob: torch.Tensor) -> torch.Tensor:
+    """Switch-style load-balance loss: E * sum_e(frac_e * mean_prob_e)."""
+    return frac.shape[-1] * (frac * mprob).sum()
 
 
 def moe_capacity(tokens_per_group: int, E: int, top_k: int,
@@ -908,13 +924,93 @@ def moe_einsum(p: Params, x: torch.Tensor, *, top_k: int,
 
 
 @traced_source
+def moe_shard_map(p: Params, x: torch.Tensor, cfg, rules
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE: the reference's ``moe_shard_map``, in a
+    :func:`~repro_torch.distributed.logical.local` region.
+
+    Each rank of the ``experts`` axis owns E/|axis| experts
+    (``w_up``/``w_gate``/``w_down`` sharded over it).  Activations are
+    batch-sharded (replicated when the batch does not divide), so every
+    rank routes all of its tokens, scatters only the assignments that
+    target one of its experts into a ``[G, E_loc, C, d]`` buffer, runs
+    its experts, and the ranks' partial outputs are summed over the
+    axis (``mesh_sum``).  The position within an expert is counted over
+    the global expert id, so every rank agrees on the capacity drops;
+    capacity comes from the rank's own T (decode: its batch is one
+    group).  The dispatch reads x and the router through ``mesh_copy``,
+    so their gradients are summed over the axis.  The aux loss is the
+    batch's (:func:`_balanced_aux`; the reference returns the first
+    batch shard's, ``ROADMAP.md`` queue 3).  Shared experts are added
+    outside the region."""
+    ep_axis = rules["experts"]
+    E = p["w_up"].shape[0]
+    E_loc = E // mesh_size(ep_axis)
+    top_k = cfg.moe_top_k
+    keys = [k for k in ("router", "w_up", "w_gate", "w_down") if k in p]
+
+    def local_fn(x_loc, *ws):
+        w = dict(zip(keys, ws))
+        B, S, d = x_loc.shape
+        xg = x_loc.reshape(1, B, d) if S == 1 else x_loc    # [G, T, d]
+        G, T, _ = xg.shape
+        C = moe_capacity(T, E, top_k, cfg.moe_capacity_factor)
+        stats = _balance_stats(*_route(w, xg, top_k)[1:])
+        xc = mesh_copy(xg, ep_axis)
+        gates, idx, _ = _route({"router": mesh_copy(w["router"], ep_axis)},
+                               xc, top_k)
+        flat_g = idx.reshape(G, T * top_k)                  # global ids
+        flat_e = flat_g - mesh_coordinate(ep_axis) * E_loc  # local ids
+        gate_flat = gates.reshape(G, T * top_k)
+        onehot = F.one_hot(flat_g, E)
+        pos = ((onehot.cumsum(dim=1) - 1) * onehot).sum(dim=-1)
+        keep = (pos < C) & (flat_e >= 0) & (flat_e < E_loc)
+        e_c = torch.where(keep, flat_e, 0)
+        pos_c = torch.where(keep, pos, C - 1)
+        x_rep = torch.where(keep[..., None],
+                            xc.repeat_interleave(top_k, dim=1), 0)
+        gidx = torch.arange(G, device=xg.device)[:, None].expand(
+            G, T * top_k)
+        buf = torch.zeros((G, E_loc, C, d), dtype=xg.dtype, device=xg.device)
+        buf = buf.index_put((gidx, e_c, pos_c), x_rep, accumulate=True)
+        out_buf = _expert_ffn(w, buf, cfg.act)
+        y_tok = out_buf[gidx, e_c, pos_c]
+        y_tok = y_tok * (gate_flat * keep)[..., None].to(xg.dtype)
+        y = y_tok.reshape(G, T, top_k, d).sum(dim=2)
+        return (mesh_sum(y, ep_axis).reshape(B, S, d),) + stats
+
+    w_axes = [(None, None) if k == "router" else ("experts", None, None)
+              for k in keys]
+    y, aux = _balanced_aux(local_fn, x, [p[k] for k in keys], w_axes, rules)
+    if cfg.moe_num_shared:
+        y = y + mlp(p["shared"], x, cfg.act)
+    return y, aux
+
+
+def _balanced_aux(fn, x, weights, w_axes, rules):
+    """``(y, aux)`` of ``fn(x, *weights) → (y, frac, mprob)`` run in a
+    ``local`` region on batch-sharded x: the load-balance statistics are
+    averaged over the batch axes that split x (equal shards), so the aux
+    loss is the whole batch's, as one device computes it."""
+    x_axes = ("batch", None, None)
+    y, frac, mprob = local(fn, [x_axes] + w_axes,
+                           [x_axes, (None,), (None,)])(x, *weights)
+    if spec_of(x_axes, rules, x.shape)[0] is not None:
+        frac = mesh_mean(frac, rules["batch"])
+        mprob = mesh_mean(mprob, rules["batch"])
+    return y, _balance_loss(frac, mprob)
+
+
+@traced_source
 def moe_layer(p: Params, x: torch.Tensor, cfg
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The config's MoE dispatch (``moe_dispatch``: scatter or einsum).
-    The reference's expert-parallel ``moe_shard_map`` is not ported
-    yet: under logical rules the layer runs on each rank's batch rows
-    with every expert's weights gathered (the work replicated over
-    'model'), and the aux loss is averaged over the batch axes."""
+
+    Under logical rules on a mesh, the reference's choice: the
+    expert-parallel :func:`moe_shard_map` when ``experts`` is bound to
+    an axis that divides E and the dispatch is scatter; otherwise the
+    layer runs on each rank's batch rows with every expert's weights
+    gathered.  Either way the aux loss is the whole batch's."""
     fn = moe_scatter if cfg.moe_dispatch == "scatter" else moe_einsum
 
     def run(p_, x_):
@@ -923,13 +1019,22 @@ def moe_layer(p: Params, x: torch.Tensor, cfg
                   n_shared=cfg.moe_num_shared)
     if not sharded(x):
         return run(p, x)
+    rules = active_rules()
+    ep_axis = rules.get("experts")
+    if (isinstance(ep_axis, str) and cfg.moe_dispatch == "scatter"
+            and p["w_up"].shape[0] % mesh_size(ep_axis) == 0):
+        return moe_shard_map(p, x, cfg, rules)
     from . import tree
     leaves = tree.flatten(p)
-    y, aux = local(lambda x_, *w: run(tree.unflatten(p, w), x_),
-                   [("batch", None, None)] + [(None,) * w.ndim
-                                             for w in leaves],
-                   [("batch", None, None), ()])(x, *leaves)
-    return y, mesh_mean(aux, active_rules()["batch"])
+
+    def gathered(x_, *w):
+        pw = tree.unflatten(p, w)
+        B, S, d = x_.shape
+        xg = x_.reshape(1, B, d) if S == 1 else x_
+        y, _ = run(pw, x_)
+        return (y,) + _balance_stats(*_route(pw, xg, cfg.moe_top_k)[1:])
+    return _balanced_aux(gathered, x, leaves,
+                         [(None,) * w.ndim for w in leaves], rules)
 
 
 # ---------------------------------------------------------------------------

@@ -38,7 +38,7 @@ def top_contributors(stats, n: int = 15) -> Tuple[List[Row], List[Row]]:
 
 
 def profile_cell(arch: str, shape: str, overrides=None, multi_pod=False,
-                 n: int = 15, device: str = "cpu"):
+                 n: int = 15, device: str = "cuda"):
     from repro_torch.launch.dryrun import lower_cell
     traced, meta = lower_cell(arch, shape, multi_pod=multi_pod,
                               overrides=overrides or {}, device=device)

@@ -30,8 +30,8 @@ without demoting the JSONL:
     one fleet store, deduplicating whole runs by (run-id, sysinfo
     digest).
 
-The reference's live dashboard over this store (``report --serve``) is
-not ported yet.
+The live dashboard over this store (``report --serve``) is
+``repro_torch.scopeplot.dashboard``.
 """
 from .index import (DB_FILE, db_path, is_fresh, load_records, rebuild,
                     refresh, store_status)

@@ -1065,3 +1065,117 @@ def test_dryrun_decode_cell_traces_on_fake_cuda_tensors(cuda):
     assert all(a.device.type == "cuda" for a in traced.args)
     cache = 2 * 16 * (128 // 16) * (32768 // 16) * 8 * 64 * 2
     assert max(meta["roofline"]["per_kind"].values()) < cache / 100
+
+
+# -- the multi-rank runtime on one card ---------------------------------------
+
+def test_codecs_on_the_card_equal_the_cpu(cuda):
+    """bf16 and int8 with error feedback on CUDA tensors: every value
+    equal to the CPU codec's, bit for bit."""
+    from repro_torch.distributed import compression as C
+    rng = np.random.default_rng(0)
+    err = {"cpu": None, "cuda": None}
+    for _ in range(5):
+        g = {"w": torch.from_numpy(rng.normal(0, 1, (33, 100)).astype(
+            np.float32)), "b": torch.from_numpy(rng.normal(
+                0, 50, 777).astype(np.float32))}
+        out = {}
+        for dev in ("cpu", "cuda"):
+            gd = {k: v.to(dev) for k, v in g.items()}
+            packed, err[dev] = C.ef_compress_tree(gd, err[dev])
+            out[dev] = (packed, C.bf16_compress(gd))
+        for k in g:
+            for part in ("q", "scale", "pad"):
+                assert torch.equal(out["cuda"][0][k][part].cpu(),
+                                   out["cpu"][0][k][part])
+            assert torch.equal(err["cuda"][k].cpu(), err["cpu"][k])
+            assert torch.equal(out["cuda"][1][k].cpu().view(torch.int16),
+                               out["cpu"][1][k].view(torch.int16))
+
+
+_ONE_RANK_NCCL = r"""
+import os, sys, tempfile
+import torch
+import torch.distributed as dist
+from repro_torch.checkpoint import load_checkpoint, restore_resharded, save_checkpoint
+from repro_torch.distributed import logical, partition as part
+from repro_torch.launch.mesh import launcher_group, make_host_mesh
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+assert launcher_group("cuda") == 1 and dist.get_backend() == "nccl"
+with make_host_mesh(1, device_type="cuda") as mesh:
+    if sys.argv[1] == "moe":
+        cfg = ModelConfig(name="t", family="moe", num_layers=2, d_model=64,
+                          num_heads=4, num_kv_heads=2, d_ff=64, vocab_size=128,
+                          moe_num_experts=8, moe_top_k=2, moe_d_ff=64,
+                          moe_num_shared=1, moe_capacity_factor=1.0,
+                          dtype="float32")
+        gen = torch.Generator("cuda").manual_seed(0)
+        p = L.init_moe(gen, 64, 8, 64, 1)
+        x = torch.randn(2, 128, 64, generator=gen, device="cuda")
+        want, aux1 = L.moe_scatter(p, x, top_k=2, capacity_factor=1.0,
+                                   n_shared=1)
+        rules = logical.default_rules(cfg, mesh)
+        assert rules["experts"] == "model"
+        dp = part.distribute_tree(p, part.param_specs(cfg, {"moe": p},
+                                                      mesh)["moe"], mesh)
+        dx = part.distribute(x, mesh, ("data", None, None))
+        with logical.logical_rules(rules):
+            y, aux = L.moe_layer(dp, dx, cfg)
+        err = (y.full_tensor() - want).abs().max().item()
+        assert err <= 1e-5, err
+        assert abs(aux.full_tensor().item() - aux1.item()) <= 1e-6
+    else:
+        gen = torch.Generator("cuda").manual_seed(1)
+        tree = {"w": torch.randn(64, 48, generator=gen, device="cuda"),
+                "h": torch.randn(8, 8, generator=gen,
+                                 device="cuda").to(torch.bfloat16),
+                "step": torch.tensor(4, dtype=torch.int32, device="cuda")}
+        specs = {"w": ("data", "model"), "h": ("model",), "step": ()}
+        placed = part.distribute_tree(tree, specs, mesh)
+        path = os.path.join(tempfile.mkdtemp(), "ck")
+        save_checkpoint(path, placed, step=4)
+        host, step = load_checkpoint(path, tree)
+        back, _ = restore_resharded(path, tree, mesh, specs)
+        for k, t in tree.items():
+            a = t.cpu()
+            for got in (host[k], back[k].full_tensor().cpu()):
+                if a.dtype == torch.bfloat16:
+                    assert torch.equal(got.view(torch.int16), a.view(torch.int16))
+                else:
+                    assert torch.equal(got, a)
+        assert step == 4
+dist.destroy_process_group()
+print("OK")
+"""
+
+
+def _one_rank_nccl(what):
+    import os
+    import socket
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+               MASTER_ADDR="localhost", MASTER_PORT=str(port),
+               PYTHONPATH=os.pathsep.join(filter(None, [
+                   os.path.join(root, "src"), os.environ.get("PYTHONPATH")])))
+    r = subprocess.run([sys.executable, "-c", _ONE_RANK_NCCL, what],
+                       capture_output=True, text=True, env=env, cwd=root,
+                       timeout=600)
+    assert r.returncode == 0 and "OK" in r.stdout, r.stderr[-3000:]
+
+
+def test_moe_expert_parallel_on_a_one_rank_nccl_mesh(cuda):
+    """``moe_layer`` under rules on a 1×1 NCCL mesh (the launcher's
+    group) takes ``moe_shard_map``: equal to ``moe_scatter``."""
+    _one_rank_nccl("moe")
+
+
+def test_sharded_save_on_a_one_rank_nccl_group(cuda):
+    """A DTensor tree saved from a one-rank NCCL group and restored, on
+    the host and on the mesh, bit-equal."""
+    _one_rank_nccl("ckpt")

@@ -47,9 +47,12 @@ def llama2():
 
 def cell(shape, mesh_shape, cfg, arch="llama3.2-1b", spec=None,
          **overrides):
+    """One cell traced on a fake (data, model) mesh, its fake tensors on
+    the CPU."""
     with make_mesh(mesh_shape, ("data", "model")) as mesh:
         traced, meta = dryrun.lower_cell(arch, shape, mesh=mesh, cfg=cfg,
-                                         spec=spec, overrides=overrides)
+                                         spec=spec, overrides=overrides,
+                                         device="cpu")
     assert not dist.is_initialized()
     return traced, meta
 
@@ -92,17 +95,30 @@ def test_decode_keeps_a_sequence_split_cache():
     ("jamba-v0.1-52b", "decode_32k"), ("whisper-small", "decode_32k"),
     ("qwen2-vl-2b", "decode_32k"), ("mamba2-780m", "train_4k"),
     ("qwen2-vl-2b", "train_4k")])
-def test_other_families_trace(arch, shape):
+def test_other_families_trace(arch, shape, monkeypatch):
     # a train cell at 8 × 256 under the train_4k policy: the SSD's and
     # M-RoPE's backward, at a tenth of the shape's trace
     spec = ShapeSpec(shape, 256, 8, "train") if shape == "train_4k" \
         else None
-    _, meta = cell(shape, (2, 4), get_config(arch).reduced(), arch=arch,
-                   spec=spec)
+    cfg = get_config(arch).reduced()
+    traced, meta = cell(shape, (2, 4), cfg, arch=arch, spec=spec)
     assert meta["status"] == "ok", meta
     assert meta["roofline"]["hlo_flops"] > 0
-    if get_config(arch).moe_num_experts:
-        assert "moe_shard_map" in meta["roofline"]["notes"]
+    if cfg.moe_num_experts:
+        # the expert-parallel branch: each rank runs E/4 experts, where
+        # the experts gathered on every rank run them all
+        assert cfg.moe_num_experts % 4 == 0
+        assert "moe_shard_map" not in meta["roofline"]["notes"]
+        assert any(c.source == "moe_shard_map"
+                   for c in traced.stats().per_node)
+        rules = dryrun.default_rules
+        monkeypatch.setattr(dryrun, "default_rules", lambda c, m: dict(
+            rules(c, m), experts=None))
+        gathered, gmeta = cell(shape, (2, 4), cfg, arch=arch, spec=spec)
+        assert not any(c.source == "moe_shard_map"
+                       for c in gathered.stats().per_node)
+        assert meta["roofline"]["hlo_flops"] \
+            < gmeta["roofline"]["hlo_flops"]
 
 
 def _run_module(module, *args):
@@ -208,3 +224,12 @@ def test_dead_scratch_is_dropped_from_the_trace():
     dryrun._drop_dead(gm.graph)
     ops = [str(n.target) for n in gm.graph.nodes if n.op == "call_function"]
     assert ops == ["aten.add_.Tensor", "aten.mul.Tensor"]
+
+
+def test_library_entry_points_default_to_the_card():
+    """``lower_cell``, ``run_cells`` and ``profile_cell`` place their
+    fake tensors on the card unless asked for the CPU, as their CLIs
+    do (a CPU trace hid faults that the card's showed)."""
+    import inspect
+    for fn in (dryrun.lower_cell, dryrun.run_cells, profile.profile_cell):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -223,3 +223,21 @@ def part_map(fn, tensors, specs):
     if isinstance(tensors, dict):
         return {k: part_map(fn, v, specs[k]) for k, v in tensors.items()}
     return fn(tensors, specs)
+
+
+def test_a_one_rank_axis_replicates():
+    """A mesh dim of one rank splits nothing: its placement is
+    ``Replicate``, so a batch of 1 on the 1×1 host mesh still views and
+    multiplies (a ``Shard`` of a size-1 dim over it cannot be viewed)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.launch.mesh import make_host_mesh
+    with make_mesh((1, 4), ("data", "model")) as mesh:
+        assert part.placements(("data", "model"), mesh) == \
+            [Replicate(), Shard(1)]
+    with make_host_mesh() as mesh:
+        x = part.distribute(torch.randn(1, 8, 4), mesh, ("data", None, None))
+        w = part.distribute(torch.randn(4, 6), mesh, (None, "model"))
+        assert list(x.placements) == [Replicate(), Replicate()]
+        y = x @ w
+        assert torch.equal(y.full_tensor(), x.full_tensor() @ w.full_tensor())
+    assert not dist.is_initialized()
