@@ -1383,6 +1383,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return nll.mean()
 
 
+@traced_source
 def chunked_loss(table: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
                  chunk: int, logits_dtype) -> torch.Tensor:
     """Cross-entropy without materializing [B,S,V]: a loop over S chunks

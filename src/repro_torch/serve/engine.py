@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.measure import cuda_devices
-from repro_torch.models import tree
+from repro_torch.models import tracing, tree
 from repro_torch.models.api import ModelApi
 
 
@@ -108,8 +108,10 @@ class ServeEngine:
         self._slot_pos = [0] * cfg.max_batch
         self._pending_tok = np.zeros(cfg.max_batch, np.int64)
         #: queued + in-flight request count sampled once per step() —
-        #: the queue-depth series latency meters average
-        self.queue_depth_log: List[int] = []
+        #: the queue-depth series latency meters average (the latest
+        #: 4,096 steps: a long-running server keeps no more)
+        self.queue_depth_log: "collections.deque[int]" = \
+            collections.deque(maxlen=4096)
 
     # -- public API -------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_tokens: int = 32,
@@ -146,12 +148,14 @@ class ServeEngine:
         one token.  Returns the requests that finished this step (empty
         when the pool is idle).  ``run`` is a loop over this; open-loop
         drivers interleave it with scheduled ``submit`` calls."""
-        self._admit()
-        depth = len(self.queue) + sum(1 for s in self.slots if s is not None)
-        self.queue_depth_log.append(depth)
-        if not any(s is not None for s in self.slots):
-            return []
-        return self._decode_step()
+        with tracing.span("engine.step"):
+            self._admit()
+            depth = len(self.queue) + sum(1 for s in self.slots
+                                          if s is not None)
+            self.queue_depth_log.append(depth)
+            if not any(s is not None for s in self.slots):
+                return []
+            return self._decode_step()
 
     def run(self, max_steps: int = 10_000) -> List[Request]:
         """Drive until queue and slots drain.  Returns finished requests."""
@@ -176,7 +180,9 @@ class ServeEngine:
             if self.slots[i] is not None or not self.queue:
                 continue
             req = self.queue.popleft()
-            self._prefill_into_slot(i, req)
+            tracing.record("engine.queue", req.submitted_at, req.uid)
+            with tracing.span("engine.admit", req.uid):
+                self._prefill_into_slot(i, req)
             self.slots[i] = req
 
     def _prefill_into_slot(self, slot: int, req: Request) -> None:
@@ -187,32 +193,53 @@ class ServeEngine:
         toks = np.zeros((1, bucket), np.int32)
         n = min(len(req.prompt), bucket)
         toks[0, :n] = req.prompt[:n]
-        cache = self.api.init_cache(1, self.cfg.max_len, self.cfg.cache_dtype,
-                                    device=self.device)
-        logits_row, row_cache = self.api.prefill(
-            self.params, {"tokens": torch.from_numpy(toks).to(self.device)},
-            cache, logit_pos=n - 1)
-        # right-padded prompt: this slot's clock is n, so padded keys
-        # beyond position n are masked by the per-slot prefix length
-        row_cache = dict(row_cache, pos=torch.full(
-            (1,), n, dtype=torch.int32, device=self.device))
-        if self.cfg.fence_timestamps:
-            fence(logits_row)
+        with tracing.span("engine.row_cache", req.uid):
+            cache = self.api.init_cache(1, self.cfg.max_len,
+                                        self.cfg.cache_dtype,
+                                        device=self.device)
+        with tracing.span("engine.prefill", req.uid):
+            logits_row, row_cache = self.api.prefill(
+                self.params,
+                {"tokens": torch.from_numpy(toks).to(self.device)},
+                cache, logit_pos=n - 1)
+            # right-padded prompt: this slot's clock is n, so padded
+            # keys beyond position n are masked by the per-slot prefix
+            # length
+            row_cache = dict(row_cache, pos=torch.full(
+                (1,), n, dtype=torch.int32, device=self.device))
+            if self.cfg.fence_timestamps:
+                fence(logits_row)
         # fenced: the logits are computed — TTFT measures delivery;
         # unfenced on a card: the launches just returned — enqueue
         req.first_token_at = time.perf_counter()
         tok = int(logits_row[0, -1].argmax())
         req.output.append(tok)
-        self.cache = _splice_row(self.cache, row_cache, slot)
+        with tracing.span("engine.splice", req.uid):
+            self.cache = _splice_row(self.cache, row_cache, slot)
         self._slot_pos[slot] = n
         self._pending_tok[slot] = tok
 
     def _decode_step(self) -> List[Request]:
-        toks = torch.from_numpy(self._pending_tok).to(self.device)[:, None]
-        logits, self.cache = self._decode(self.params, toks, self.cache)
-        if self.cfg.fence_timestamps:
-            fence(logits)
+        if tracing.enabled():
+            # the positions decode attention keeps (each live slot's
+            # prefix and the token this step writes) and those it reads
+            # (the whole padded pool)
+            tracing.count("engine.kv_live", sum(
+                p + 1 for p, r in zip(self._slot_pos, self.slots)
+                if r is not None))
+            tracing.count("engine.kv_read",
+                          self.cfg.max_batch * self.cfg.max_len)
+        with tracing.span("engine.decode"):
+            toks = torch.from_numpy(self._pending_tok).to(
+                self.device)[:, None]
+            logits, self.cache = self._decode(self.params, toks, self.cache)
+            if self.cfg.fence_timestamps:
+                fence(logits)
         stamp = time.perf_counter()
+        with tracing.span("engine.sample"):
+            return self._sample(logits, stamp)
+
+    def _sample(self, logits, stamp: float) -> List[Request]:
         nxt = logits[:, 0].argmax(dim=-1).cpu().numpy()
         done: List[Request] = []
         for i, req in enumerate(self.slots):

@@ -29,7 +29,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from repro_torch.distributed.logical import is_dtensor
-from repro_torch.models import tree
+from repro_torch.models import tracing, tree
 from repro_torch.models.api import ModelApi
 from repro_torch.models.tracing import repeated, traced_source
 from .optimizer import (AdamWConfig, adamw_init, adamw_update,
@@ -110,7 +110,8 @@ def _grad_fn(api: ModelApi):
     def grad_fn(params, batch):
         alias = tree.map(lambda p: p.detach().requires_grad_(), params)
         with torch.enable_grad():
-            loss, metrics = api.loss(alias, batch)
+            with tracing.span("forward"):
+                loss, metrics = api.loss(alias, batch)
             grads = backward(loss, tree.flatten(alias))
         metrics = {k: v.detach() for k, v in metrics.items()}
         return (loss.detach(), metrics), tree.unflatten(alias, grads)
@@ -130,6 +131,10 @@ def make_train_step(api: ModelApi, opt_cfg: AdamWConfig,
 
     def train_step(state: TrainState, batch: Dict[str, Any]
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        with tracing.span("train_step"):
+            return step(state, batch)
+
+    def step(state, batch):
         params = state["params"]
         if grad_specs is not None and not is_dtensor(tree.flatten(params)[0]):
             raise ValueError("grad_specs place DTensor gradients: the state "

@@ -104,6 +104,9 @@ def test_other_families_trace(arch, shape, monkeypatch):
     traced, meta = cell(shape, (2, 4), cfg, arch=arch, spec=spec)
     assert meta["status"] == "ok", meta
     assert meta["roofline"]["hlo_flops"] > 0
+    if spec is not None:                  # the loss is a source of its own
+        assert any(c.source == "chunked_loss"
+                   for c in traced.stats().per_node)
     if cfg.moe_num_experts:
         # the expert-parallel branch: each rank runs E/4 experts, where
         # the experts gathered on every rank run them all

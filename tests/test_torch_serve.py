@@ -276,7 +276,7 @@ def test_engine_tokens_equal_reference_engine_in_float32(ref_weights):
     ref_eng.run()
     eng.run()
     assert [r.output for r in reqs] == [r.output for r in ref_reqs]
-    assert eng.queue_depth_log == ref_eng.queue_depth_log
+    assert list(eng.queue_depth_log) == ref_eng.queue_depth_log
 
 
 @pytest.mark.parametrize("max_batch", [1, 3])
