@@ -54,6 +54,19 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      heads a block are logged, and the whole ``ssd`` call is split into
      the kernel and its torch remainder.  No single torch call computes
      it, so its library time is null;
+ 7b. decode-attention kernel against its plain version (its
+     split-and-combine algorithm, ``ref.py``) at ``DECODE_SHAPES``: the
+     chat cell's pool (64 slots x 2,560, internlm2-1.8b's heads, bf16)
+     with lengths drawn from the chat mix and full, other head groups
+     and sizes, float16 and float32, lengths from 0 to past the cache;
+     at the chat pool also a scalar length and a cache cut in two whose
+     partials merge to the whole; two launches a call, and the positions
+     each call reports it read are each row's live splits.  The kernel's
+     tolerance is ``ref.TOL`` (atol, rtol); each row logs its largest
+     error beside its outputs' typical size.  Times beside
+     the bound (the live k and v once), the port's plain form
+     (``layers._decode_attention_plain``) and masked SDPA, which the port
+     never calls;
   8. models: llama3.2-1b and mamba2-780m at their published widths and
      depths through the port's model API (``repro_torch.models.build``;
      weights from its ``init``, seeded), a batch of 2 x 4096 random
@@ -81,8 +94,9 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      ``--results-dir ''``),
      with the kernels' launch counts set to 0 just before and read just
      after.  Every scope must load and be enabled, every instance must
-     have a record without error and with ``compile_time_s``, all five
-     kernels must have launched,
+     have a record without error and with ``compile_time_s``, all six
+     kernels must have launched (decode attention in the serve scope's
+     engine),
      the mxu scope's bf16 ``cuda`` rows must have gone through matmul's
      ``wgmma`` variant, the nn scope's float32 flash rows through flash
      attention's ``ffma`` variant and its ``ssd_scan_cuda`` rows
@@ -158,8 +172,9 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      with every slot live against its bound (bf16 weight bytes plus one
      full cache read over the card's memory rate), one profiled step's
      idle share and top aten ops, the cache's bytes and
-     ``max_memory_allocated``.  No hand-written kernel lies on this path
-     (the reference's serving path calls no Pallas kernel);
+     ``max_memory_allocated``.  Its decode attention runs the
+     decode-attention kernel (phase 7b; the reference's serving path
+     calls no Pallas kernel);
  16. the serve scope in a child process: ``python -m repro_torch run
      --enable-scope serve --meters wall,cpu,latency --slo-ms 200``; every
      record must carry ``latency_p99_s``, ``ttft_p99_s``,
@@ -216,7 +231,7 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      kernel nodes; ``run --lint --strict`` over ``LINT_RUN_SCOPES`` (mxu,
      histo, nn, linalg) in this process, with the counts set to 0 just
      before and read just after, must exit 0 with every record free of
-     error and all five kernels launched; a planted scope whose one
+     error and the five scope kernels launched; a planted scope whose one
      family traces to no compute on its operand (SCOPE201) makes ``run
      --lint`` exit 1 and write nothing; ``serve_demo`` of llama3.2-1b
      at its published width and depth (``reduced=False``) must finish
@@ -332,6 +347,11 @@ from repro_torch.kernels.ssd_scan import (ssd, ssd_chunk,  # noqa: E402
                                           ssd_chunk_ref, ssd_chunked,
                                           ssd_reference)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention, decode_attention_partials, decode_attention_ref)
+from repro_torch.kernels.decode_attention import ops as decode_ops  # noqa: E402
+from repro_torch.kernels.decode_attention import ref as decode_ref  # noqa: E402
+from repro_torch.models import layers as model_layers  # noqa: E402
 
 #: The reference's tolerances (tests/test_kernels.py): atol = rtol.
 MATMUL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-1}
@@ -412,6 +432,23 @@ SSD_HEADLINE = SSD_SHAPES[1]
 #: version, ``ssd`` to the sequential recurrence): the nn scope's rows
 #: and mamba2-780m's SSD layer.
 SSD_TILE_SHAPES = [SSD_SHAPES[0], SSD_SHAPES[1], SSD_SHAPES[3]]
+#: (dtype, B, Smax, H, K, D, lengths): the chat cell's pool
+#: (internlm2-1.8b's attention, 64 slots x 2,560 in bf16) with live
+#: lengths drawn from the chat mix (``chat``) and with every slot full;
+#: llama3.2-1b's heads (32 / 8 of 64), a group of 6 (qwen2-vl-2b), head
+#: size 160 (stablelm-12b), float16 and float32 caches, lengths from 0 to
+#: past the cache (``ragged``), and one long row.
+DECODE_SHAPES = [
+    (torch.bfloat16, 64, 2560, 16, 8, 128, "chat"),
+    (torch.bfloat16, 64, 2560, 16, 8, 128, "full"),
+    (torch.bfloat16, 8, 4096, 32, 8, 64, "ragged"),
+    (torch.bfloat16, 8, 2048, 12, 2, 128, "ragged"),
+    (torch.bfloat16, 4, 2048, 32, 8, 160, "ragged"),
+    (torch.float16, 64, 2560, 16, 8, 128, "chat"),
+    (torch.float32, 16, 2048, 16, 8, 128, "ragged"),
+    (torch.bfloat16, 1, 32768, 16, 8, 128, "full"),
+]
+DECODE_HEADLINE = DECODE_SHAPES[0]
 
 
 def log(msg: str) -> None:
@@ -471,6 +508,8 @@ FLASH_KERNELS = ("flash_attention_wgmma_kernel", "flash_attention_ffma_kernel",
 HISTOGRAM_KERNELS = ("histogram_kernel",)
 RMSNORM_KERNELS = ("rmsnorm_kernel",)
 SSD_KERNELS = ("ssd_chunk_tiled_kernel",)
+DECODE_KERNELS = ("decode_attention_split_kernel",
+                  "decode_attention_combine_kernel")
 
 
 def variant_of(ops, before: dict) -> str:
@@ -550,13 +589,14 @@ def phase_sass(names) -> dict:
     return counts
 
 
-def check_close(what, got, want, tol) -> float:
-    """Largest absolute difference; raises past ``atol = rtol = tol``."""
+def check_close(what, got, want, tol, rtol=None) -> float:
+    """Largest absolute difference; raises past ``atol = tol`` and
+    ``rtol`` (``tol`` too unless given)."""
     err = (got.float() - want.float()).abs().max().item() \
         if got.numel() else 0.0
     try:
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
-                                   rtol=tol)
+                                   rtol=tol if rtol is None else rtol)
     except AssertionError as e:
         raise AssertionError(f"{what}: {e}") from None
     return err
@@ -1016,6 +1056,119 @@ def phase_ssd(hw: dict) -> dict:
                      shapes, SSD_HEADLINE, tiles)
 
 
+def decode_lengths(case: str, B: int, smax: int, gen) -> torch.Tensor:
+    """Each row's cache length: ``chat`` draws a live slot of the chat
+    mix (``bench/traffic/chat.json``: prompt lognormal, median 1,020,
+    sigma 0.8, 16-2,000; output lognormal, median 129, sigma 1.0,
+    8-512; a point part-way through the output), ``full`` every slot
+    full, ``ragged`` uniform over [0, Smax + 64] with an empty row and
+    one past the cache (a free slot's clock)."""
+    if case == "full":
+        n = torch.full((B,), smax)
+    elif case == "chat":
+        def lognormal(median, sigma, lo, hi):
+            x = torch.exp(math.log(median) + sigma * torch.randn(
+                B, generator=gen))
+            return x.round().clamp(lo, hi)
+        out = lognormal(129, 1.0, 8, 512)
+        n = lognormal(1020, 0.8, 16, 2000) + (
+            torch.rand(B, generator=gen) * out).ceil().clamp(min=1)
+    else:
+        n = torch.randint(0, smax + 65, (B,), generator=gen)
+        n[0] = 0
+        n[-1] = smax + 40
+    return n.to(torch.int32).cuda()
+
+
+def phase_decode_attention(hw: dict) -> dict:
+    """The decode-attention kernel against its plain version at
+    :data:`DECODE_SHAPES`, with its split, its time beside its bound
+    (the live k and v once, q and out), the port's plain form
+    (``layers._decode_attention_plain``, what the decode path ran before
+    the kernel) and SDPA (``F.scaled_dot_product_attention``, masked to
+    each row's prefix), which the port never calls.  Also held: a scalar
+    length, the partials of a cache cut in two merged to the whole, and
+    two launches a call."""
+    gen = torch.Generator().manual_seed(0)
+    shapes = []
+    for key in DECODE_SHAPES:
+        dtype, B, S, H, K, D, case = key
+        q = torch.randn((B, 1, H, D), generator=gen).to("cuda", dtype)
+        k, v = (torch.randn((B, S, K, D), generator=gen).to("cuda", dtype)
+                for _ in range(2))
+        lens = decode_lengths(case, B, S, gen)
+        split = decode_ops.device_split_len(q.device, B, K, H // K, S)
+        # the kernel's own tolerance, (atol, rtol), with its reason
+        atol, rtol = decode_ref.TOL[dtype]
+        before = decode_ops.launches
+        with decode_ops.logging_reads() as reads:
+            out = decode_attention(q, k, v, lens)
+        if decode_ops.launches != before + 2:
+            raise AssertionError(f"decode_attention {key}: "
+                                 f"{decode_ops.launches - before} launches")
+        if not torch.equal(reads[0].cpu(), decode_ref.positions_read(
+                lens.cpu(), B, 0, S, split)):
+            raise AssertionError(f"decode_attention {key}: the positions "
+                                 f"it read are not each row's live splits")
+        what = (f"decode_attention {dname(dtype)} B={B} S={S} H={H} K={K} "
+                f"D={D} {case}")
+        want = decode_attention_ref(q, k, v, lens, split_len=split)
+        err = check_close(what, out, want, atol, rtol)
+        # the outputs' own scale: the median |out| of the rows with a
+        # live position, and the largest error in units of the tolerance
+        typical = want[lens > 0].float().abs().median().item()
+        used = ((out.float() - want.float()).abs()
+                / (atol + rtol * want.float().abs())).max().item()
+        if key == DECODE_HEADLINE:
+            err = max(err, check_close(
+                f"{what} scalar length", decode_attention(q, k, v, 1500),
+                decode_attention_ref(q, k, v, 1500, split_len=split), atol,
+                rtol))
+            cut = S // 2 + 40
+            parts = [decode_attention_partials(q, k[:, a:b], v[:, a:b], lens,
+                                               first=a)
+                     for a, b in ((0, cut), (cut, S))]
+            m, l, acc = (torch.stack(x) for x in zip(*parts))
+            merged = decode_ref.normalise(
+                *decode_ref.merge(m, l, acc)[1:]).to(dtype)
+            err = max(err, check_close(f"{what} partials", merged, want,
+                                       atol, rtol))
+        live = int(lens.clamp(0, S).sum())
+        item = k.element_size()
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        mask = None if case == "full" else (
+            torch.arange(S, device="cuda")[None] < lens[:, None].long()
+        )[:, None, None, :]
+        row = {
+            "dtype": dname(dtype), "B": B, "Smax": S, "H": H, "K": K, "D": D,
+            "lengths": case, "live_positions": live, "split": split,
+            "max_abs_err": err, "typical_abs_out": typical,
+            "tol_used": used, "atol": atol, "rtol": rtol,
+            "ms": time_ms(lambda: decode_attention(q, k, v, lens)),
+            "device_ms": device_ms(lambda: decode_attention(q, k, v, lens),
+                                   DECODE_KERNELS),
+            "plain_ms": time_ms(lambda: model_layers._decode_attention_plain(
+                q, k, v, lens)),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=H != K)),
+            **bound(hw, (2 * live * K * D + 2 * B * H * D) * item,
+                    4.0 * live * H * D, dtype),
+        }
+        log(f"{what} (split {split}, {live} live of {B * S}): max_abs_err "
+            f"{err:.3g} against a typical |out| {typical:.3g} ({used:.3g} of "
+            f"atol {atol} + rtol {rtol}) kernel {row['ms']:.4f} ms (device "
+            f"{fmt_ms(row['device_ms'])}) plain {row['plain_ms']:.4f} ms "
+            f"sdpa {row['library_ms']:.4f} ms bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
+        shapes.append((key, row))
+    return summarize(
+        "decode_attention",
+        "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+        "none: src/repro/models/layers.py::decode_attention is plain jnp",
+        "src/repro/models/layers.py::decode_attention", shapes,
+        DECODE_HEADLINE)
+
+
 def summarize(name, source, replaces, function, shapes, headline,
               tiles=()) -> dict:
     top = dict(shapes)[headline]
@@ -1037,7 +1190,11 @@ def summarize(name, source, replaces, function, shapes, headline,
 #: Each kernel's wrapper module, whose ``launches`` the main path reads.
 KERNEL_OPS = {"matmul": matmul_ops, "histogram": histogram_ops,
               "flash_attention": flash_ops, "rmsnorm": rmsnorm_ops,
-              "ssd_scan": ssd_ops}
+              "ssd_scan": ssd_ops, "decode_attention": decode_ops}
+#: The kernels the scopes' own families launch (the rest run under the
+#: models: decode attention in the serve scope's engine).
+SCOPE_KERNELS = ("matmul", "histogram", "flash_attention", "rmsnorm",
+                 "ssd_scan")
 #: Wrappers with variants of their own (``launches_by_variant``).
 VARIANT_OPS = {"matmul": matmul_ops, "flash_attention": flash_ops,
                "ssd_scan": ssd_ops}
@@ -2870,7 +3027,8 @@ def phase_report() -> dict:
     return facts
 
 
-#: Phase 19: the scopes ``run --lint --strict`` drives (all five kernels).
+#: Phase 19: the scopes ``run --lint --strict`` drives (the five scope
+#: kernels).
 LINT_RUN_SCOPES = ["mxu", "histo", "nn", "linalg"]
 #: The families whose fixtures do not follow ``(callable, *operands)``:
 #: their SCOPE203 infos are the only findings the lint may report.
@@ -3049,7 +3207,8 @@ def phase_lint() -> dict:
                    "--benchmark_out", out])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {name: ops.launches for name, ops in KERNEL_OPS.items()}
+        launches = {name: KERNEL_OPS[name].launches
+                    for name in SCOPE_KERNELS}
         with open(out) as f:
             records = json.load(f)["benchmarks"]
     if rc != 0 or not all(launches.values()) or \
@@ -3716,7 +3875,7 @@ def main() -> int:
     hw = phase_device()
     sass = phase_build()
     kernels = [phase_matmul(hw), phase_histogram(hw), phase_flash(hw),
-               phase_rmsnorm(hw), phase_ssd(hw)]
+               phase_rmsnorm(hw), phase_ssd(hw), phase_decode_attention(hw)]
     models = phase_models(hw)
     host = phase_host_path()
     launches, by_variant, model_free = phase_main_path()

@@ -11,4 +11,10 @@ They replace the JAX package's five Pallas TPU kernels of the same
 names: ``matmul`` carries the mxu scope (TCU|Scope), ``histogram`` the
 histo scope (Histo|Scope), and ``flash_attention``, ``rmsnorm`` and
 ``ssd_scan`` (the Mamba2 SSD chunk kernel) the nn scope (cuDNN|Scope).
+``decode_attention`` replaces no Pallas kernel (the reference's decode
+attention is plain jnp): it is the models' decode attention on the
+card, where the plain form held the serve engine's decode step.  Its
+operators are registered with ``torch.library.Library`` (CUDA, CPU and
+Meta kernels) rather than as a ``custom_op``, whose first call imports
+``torch._dynamo``: seconds of a serving process's set-up.
 """

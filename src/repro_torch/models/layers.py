@@ -56,6 +56,7 @@ from repro_torch.distributed.logical import (Placed, active_rules,
                                              mesh_mean, mesh_reduce,
                                              mesh_size, mesh_sum, sharded,
                                              spec_of)
+from repro_torch.kernels.decode_attention import ops as decode_kernel
 from repro_torch.models.tracing import repeated, traced_source
 
 Params = Dict[str, Any]
@@ -560,9 +561,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     The products are grouped by KV head: q is viewed as ``[B, K, H/K,
     D]`` against the cache's K heads, which gives the products of the
     reference's ``repeat_kv`` form (head ``h`` reads KV head ``h //
-    (H/K)``) without writing the repeated cache.  Only the one layer's
-    cache that is passed in is widened to float32 (a bfloat16 product
-    is exact in float32).
+    (H/K)``) without writing the repeated cache.  On the CPU only the one
+    layer's cache that is passed in is widened to float32 (a bfloat16
+    product is exact in float32); a CUDA tensor takes the split-KV kernel
+    (``repro_torch.kernels.decode_attention``), which reads each row's
+    live prefix once in the cache's dtype and follows these numerics tile
+    by tile.
     """
     if sharded(k_cache):
         return _decode_attention_sharded(q, k_cache, v_cache, cache_len)
@@ -574,7 +578,20 @@ def _decode_attention(q, k_cache, v_cache, cache_len, first: int = 0,
     """:func:`decode_attention` on one rank's cache positions ``first``
     onward; with ``seq_axis`` (under rules: the mesh axes that split the
     cache's positions) the ranks combine their softmax parts, as flash
-    decoding does."""
+    decoding does.  A CUDA tensor takes the hand-written kernel
+    (:func:`_decode_attention_kernel`), a CPU tensor the plain form
+    (:func:`_decode_attention_plain`)."""
+    if q.device.type == "cuda":
+        return _decode_attention_kernel(q, k_cache, v_cache, cache_len,
+                                        first, seq_axis)
+    return _decode_attention_plain(q, k_cache, v_cache, cache_len, first,
+                                   seq_axis)
+
+
+def _decode_attention_plain(q, k_cache, v_cache, cache_len, first: int = 0,
+                            seq_axis=None) -> torch.Tensor:
+    """:func:`_decode_attention` in plain torch ops: the whole padded cache
+    widened to float32, masked past each row's prefix."""
     B, _, H, D = q.shape
     Smax, K = k_cache.shape[1], k_cache.shape[2]
     G = H // K
@@ -600,6 +617,29 @@ def _decode_attention(q, k_cache, v_cache, cache_len, first: int = 0,
     l_safe = torch.where(l == 0.0, 1.0, l)
     o = (pv / l_safe[..., None]).reshape(B, 1, H, D)
     return o.to(q.dtype)
+
+
+def _decode_attention_kernel(q, k_cache, v_cache, cache_len, first: int,
+                             seq_axis) -> torch.Tensor:
+    """:func:`_decode_attention` through the split-KV kernel
+    (``repro_torch.kernels.decode_attention``), which reads each row's
+    prefix once in the cache's dtype.  With ``seq_axis`` the kernel gives
+    this rank's merged ``(m, l, acc)`` and the ranks combine them: the
+    max of ``m``, each rank's ``l`` and ``acc`` rescaled by ``exp(m_rank
+    - m)`` and summed, then ``acc / l`` (0 where ``l`` is 0)."""
+    if seq_axis is None:
+        return decode_kernel.decode_attention(q, k_cache, v_cache, cache_len,
+                                              first=first)
+    m, l, acc = decode_kernel.decode_attention_partials(
+        q, k_cache, v_cache, cache_len, first=first)
+    m_all = mesh_reduce(m, "max", seq_axis)
+    w = torch.where(torch.isneginf(m), 0.0, torch.exp(
+        m - torch.where(torch.isneginf(m_all), 0.0, m_all)))
+    l = mesh_reduce(l * w, "sum", seq_axis)
+    pv = mesh_reduce(acc * w[..., None], "sum", seq_axis)
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    B, _, H, D = q.shape
+    return (pv / l_safe[..., None]).reshape(B, 1, H, D).to(q.dtype)
 
 
 def _split_axes(t, dim: int):

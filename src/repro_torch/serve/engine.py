@@ -21,6 +21,7 @@ KV blocks, as in the reference.  The engine runs under
 from __future__ import annotations
 
 import collections
+import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.measure import cuda_devices
+from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.models import tracing, tree
 from repro_torch.models.api import ModelApi
 
@@ -102,9 +104,9 @@ class ServeEngine:
                                             device=self.device)
         self._decode = lambda p, t, c: transformer.decode_step_ragged(
             api.cfg, p, t, c)
-        # host-side per-slot position clocks (prefix + decoded tokens):
-        # max_len exhaustion is a host decision, it must not read the
-        # device cache
+        # host-side per-slot position clocks (prefix + decoded tokens),
+        # the device clocks' mirror: max_len exhaustion is a host
+        # decision, it must not read the device cache
         self._slot_pos = [0] * cfg.max_batch
         self._pending_tok = np.zeros(cfg.max_batch, np.int64)
         #: queued + in-flight request count sampled once per step() —
@@ -220,16 +222,16 @@ class ServeEngine:
         self._pending_tok[slot] = tok
 
     def _decode_step(self) -> List[Request]:
-        if tracing.enabled():
-            # the positions decode attention keeps (each live slot's
-            # prefix and the token this step writes) and those it reads
-            # (the whole padded pool)
+        traced = tracing.enabled()
+        if traced:
+            # the positions decode attention keeps: each live slot's
+            # prefix and the token this step writes
             tracing.count("engine.kv_live", sum(
                 p + 1 for p, r in zip(self._slot_pos, self.slots)
                 if r is not None))
-            tracing.count("engine.kv_read",
-                          self.cfg.max_batch * self.cfg.max_len)
-        with tracing.span("engine.decode"):
+        with tracing.span("engine.decode"), (
+                decode_ops.logging_reads() if traced
+                else contextlib.nullcontext()) as reads:
             toks = torch.from_numpy(self._pending_tok).to(
                 self.device)[:, None]
             logits, self.cache = self._decode(self.params, toks, self.cache)
@@ -237,18 +239,32 @@ class ServeEngine:
                 fence(logits)
         stamp = time.perf_counter()
         with tracing.span("engine.sample"):
-            return self._sample(logits, stamp)
+            done = self._sample(logits, stamp)
+        if traced:
+            tracing.count("engine.kv_read", self._kv_read(reads))
+        return done
+
+    def _kv_read(self, reads: List[torch.Tensor]) -> int:
+        """The cache positions one layer's decode attention read in this
+        step: what the kernel reported, averaged over its calls (one a
+        layer; read after the step's sample has waited for the device),
+        or, where no kernel ran (the plain form, on the CPU), the whole
+        padded pool."""
+        if not reads:
+            return self.cfg.max_batch * self.cfg.max_len
+        return int(torch.stack(reads).sum()) // len(reads)
 
     def _sample(self, logits, stamp: float) -> List[Request]:
         nxt = logits[:, 0].argmax(dim=-1).cpu().numpy()
         done: List[Request] = []
         for i, req in enumerate(self.slots):
+            # every slot's device clock moves on a step, live or free
+            self._slot_pos[i] += 1
             if req is None:
                 continue
             tok = int(nxt[i])
             req.output.append(tok)
             self._pending_tok[i] = tok
-            self._slot_pos[i] += 1
             # the slot's cache is full when the *next* decode would
             # write at max_len: terminate rather than overrun the
             # static cache (the request is truncated, not failed)

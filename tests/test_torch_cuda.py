@@ -23,6 +23,11 @@ from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 from repro_torch.kernels.ssd_scan import (ssd, ssd_chunk, ssd_chunk_ref,
                                           ssd_chunked, ssd_reference)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_partials,
+                                                  decode_attention_ref)
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.decode_attention import ref as decode_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -395,6 +400,184 @@ def test_ssd_kernel_empty_and_odd_widths(cuda, p, n):
     odd widths take the 4-byte copies."""
     x, dt, A, Bm, Cm, D = _ssd_operands(1, 64, 3, p, n, cuda)
     _ssd_chunk_holds(x, dt, A, Bm, Cm, 32)
+
+
+def _decode_close(got, want, dtype):
+    """The decode-attention kernel against its plain version on the card,
+    within the kernel's tolerance (``ref.TOL``, each with its reason)."""
+    atol, rtol = decode_ref.TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+def _decode_operands(B, S, H, K, D, dtype, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, 1, H, D), generator=gen)
+    k, v = (torch.randn((B, S, K, D), generator=gen) for _ in range(2))
+    # lengths: empty, one, a tile, the cache, past it, then ragged
+    lens = torch.randint(0, S + 1, (B,), generator=gen)
+    lens[:5] = torch.tensor([0, 1, 32, S, S + 77])[:B]
+    return (q.to(device, dtype), k.to(device, dtype), v.to(device, dtype),
+            lens.to(device, torch.int32))
+
+
+@pytest.mark.parametrize("B,S,H,K,D", [
+    (6, 300, 4, 2, 64), (5, 1000, 16, 8, 128), (5, 200, 12, 2, 128),
+    (5, 130, 32, 8, 160), (5, 64, 4, 4, 8), (5, 100, 4, 1, 256),
+    (5, 70, 16, 1, 64), (64, 2560, 16, 8, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_decode_attention_kernel_matches_plain(cuda, B, S, H, K, D, dtype):
+    q, k, v, lens = _decode_operands(B, S, H, K, D, dtype, cuda)
+    split = decode_ops.device_split_len(q.device, B, K, H // K, S)
+    before = decode_ops.launches
+    with decode_ops.logging_reads() as reads:
+        got = decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert decode_ops.launches == before + 2
+    want = decode_attention_ref(q, k, v, lens, split_len=split)
+    _decode_close(got, want, dtype)
+    assert not got[0].any()                        # the empty prefix
+    # the positions it read: each row's live splits
+    assert torch.equal(reads[0].cpu(), decode_ref.positions_read(
+        lens.cpu(), B, 0, S, split))
+    got = decode_attention(q, k, v, S // 2 + 3)    # one length for all
+    want = decode_attention_ref(q, k, v, S // 2 + 3, split_len=split)
+    _decode_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_partials_merge_to_the_whole(cuda, dtype):
+    """A cache cut by position in three, each part's merged (m, l, acc)
+    at its offset: merged over the parts, the whole's attention."""
+    q, k, v, lens = _decode_operands(7, 700, 16, 8, 128, dtype, cuda, 1)
+    atol, rtol = decode_ref.TOL[dtype]
+    cuts = (0, 250, 512, 700)
+    parts = [decode_attention_partials(q, k[:, a:b], v[:, a:b], lens,
+                                       first=a)
+             for a, b in zip(cuts, cuts[1:])]
+    m, l, acc = (torch.stack(x) for x in zip(*parts))
+    got = decode_ref.normalise(*decode_ref.merge(m, l, acc)[1:])
+    want = decode_attention(q, k, v, lens)
+    _decode_close(got.to(dtype), want, dtype)
+    for (a, b), (pm, pl, pa) in zip(zip(cuts, cuts[1:]), parts):
+        wm, wl, wa = decode_attention_ref(
+            q, k[:, a:b], v[:, a:b], lens, first=a, partials=True,
+            split_len=decode_ops.device_split_len(cuda, 7, 8, 2, b - a))
+        torch.testing.assert_close(pm, wm, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(pl, wl, atol=atol, rtol=rtol)
+        torch.testing.assert_close(pa, wa, atol=atol, rtol=rtol)
+
+
+def test_decode_attention_kernel_views_and_mixed_dtypes(cuda):
+    """A layer's slice of a stacked cache, every other row of it (a batch
+    stride of two rows), and a float32 q over a bfloat16 cache (out in
+    float32, rounded once)."""
+    q, k, v, lens = _decode_operands(8, 512, 16, 8, 128, torch.bfloat16,
+                                     cuda, 2)
+    stack_k = torch.stack([k, k.flip(0)])
+    stack_v = torch.stack([v, v.flip(0)])
+    kl, vl = stack_k[1][::2], stack_v[1][::2]
+    lens2 = lens[::2].contiguous()
+    got = decode_attention(q[::2], kl, vl, lens2)
+    want = decode_attention_ref(q[::2], kl.contiguous(), vl.contiguous(),
+                                lens2, split_len=decode_ops.device_split_len(
+                                    cuda, 4, 8, 2, 512))
+    _decode_close(got, want, torch.bfloat16)
+    # float32 out: not rounded to bfloat16, so closer than its tolerance
+    got32 = decode_attention(q.float(), k, v, lens)
+    assert got32.dtype == torch.float32
+    want32 = decode_attention_ref(q.float(), k, v, lens,
+                                  split_len=decode_ops.device_split_len(
+                                      cuda, 8, 8, 2, 512))
+    _decode_close(got32, want32, torch.bfloat16)
+
+
+def test_decode_attention_never_imports_dynamo(cuda):
+    """A call goes through the ``torch.library`` operator without
+    importing ``torch._dynamo`` (seconds that a serving process would
+    pay in its set-up); a counted call gives the same bits."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [os.path.join(root, "src"),
+                      os.environ.get("PYTHONPATH")])))
+    code = (
+        "import sys, torch\n"
+        "from repro_torch.kernels.decode_attention import ops\n"
+        "q = torch.randn(2, 1, 16, 128, device='cuda', dtype=torch.bfloat16)\n"
+        "k = torch.randn(2, 300, 8, 128, device='cuda', dtype=torch.bfloat16)\n"
+        "lens = torch.tensor([5, 300], device='cuda', dtype=torch.int32)\n"
+        "ops.decode_attention(q, k, k, lens)\n"
+        "with torch.inference_mode():\n"
+        "    ops.decode_attention(q, k, k, lens)\n"
+        "ops.decode_attention_partials(q, k, k, lens)\n"
+        "torch.cuda.synchronize()\n"
+        "assert ops.launches == 6, ops.launches\n"
+        "assert 'torch._dynamo' not in sys.modules\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, cwd=root, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    from torch.utils.flop_counter import FlopCounterMode
+    q, k, v, lens = _decode_operands(5, 400, 16, 8, 128, torch.bfloat16,
+                                     cuda, 4)
+    plain = decode_attention(q, k, v, lens)
+    with FlopCounterMode(display=False) as counted:
+        under_mode = decode_attention(q, k, v, lens)
+    assert counted.get_total_flops() == 4 * 5 * 16 * 400 * 128
+    assert torch.equal(plain, under_mode)
+
+
+def test_decode_attention_layer_on_the_card_runs_the_kernel(cuda):
+    """``layers.decode_attention`` on a CUDA tensor launches the kernel
+    (two launches) and agrees with the plain form on the CPU (two
+    algorithms, so their roundings part more than the kernel's and its
+    plain version's, within the same tolerance)."""
+    from repro_torch.models import layers as L
+    q, k, v, lens = _decode_operands(5, 400, 16, 8, 128, torch.bfloat16,
+                                     cuda, 3)
+    before = decode_ops.launches
+    got = L.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert decode_ops.launches == before + 2
+    want = L.decode_attention(q.cpu(), k.cpu(), v.cpu(), lens.cpu())
+    _decode_close(got.cpu(), want, torch.bfloat16)
+
+
+def test_engine_counts_what_the_decode_kernel_read(cuda):
+    """A traced decode step on the card counts ``engine.kv_read`` from
+    the kernel's own report: each slot's clock (free slots' run on)
+    clamped to the cache and rounded up to a whole split."""
+    from repro_torch.models import tracing
+    from repro_torch.serve import ServeConfig, ServeEngine
+    api, params = _small_llama(cuda, "bfloat16")
+    eng = ServeEngine(api, params, ServeConfig(
+        max_batch=3, max_len=300, prompt_buckets=(16, 64)))
+    # clocks that cross splits; the first slot frees part-way, and its
+    # clock runs on with the free third's
+    for n, toks in ((30, 4), (60, 9)):
+        eng.submit(np.arange(1, n + 1), max_tokens=toks)
+    K = api.cfg.num_kv_heads
+    split = decode_ops.device_split_len(cuda, 3, K, api.cfg.num_heads // K,
+                                        300)
+    want = []
+    tracing.enable()
+    try:
+        while eng.queue or any(r is not None for r in eng.slots):
+            eng.step()
+            want.append(int(decode_ref.positions_read(
+                torch.tensor(eng._slot_pos), 3, 0, 300, split).sum()))
+        counts = tracing.export()["counts"]
+    finally:
+        tracing.disable()
+        tracing.export()
+    read = [c["value"] for c in counts if c["name"] == "engine.kv_read"]
+    # every step decoded (a request's first token is its prefill's); its
+    # kernel read each clock as it stands after the step moved it on
+    assert len(read) == 8 and len(set(read)) > 1
+    assert read == want
 
 
 def test_kernels_reject_what_they_cannot_take(cuda):

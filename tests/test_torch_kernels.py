@@ -164,7 +164,8 @@ def test_histogram_grid_size():
 _PROFILER_FILTERS = {"matmul": "MATMUL_KERNELS",
                      "histogram": "HISTOGRAM_KERNELS",
                      "flash_attention": "FLASH_KERNELS",
-                     "rmsnorm": "RMSNORM_KERNELS", "ssd_scan": "SSD_KERNELS"}
+                     "rmsnorm": "RMSNORM_KERNELS", "ssd_scan": "SSD_KERNELS",
+                     "decode_attention": "DECODE_KERNELS"}
 
 
 @pytest.mark.parametrize("name", sorted(_PROFILER_FILTERS))
