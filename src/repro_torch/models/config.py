@@ -31,6 +31,12 @@ class ModelConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     act: str = "silu"               # silu (SwiGLU) | gelu (plain MLP)
+    # muP scalars (granite): embedding × e, each residual branch × r,
+    # logits ÷ l, the softmax scale a; the defaults launch nothing
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    attention_multiplier: float = 0.0   # 0 → 1/sqrt(hd)
     max_seq: int = 32768            # learned-position table size (encdec)
 
     # --- rotary ---
@@ -47,7 +53,8 @@ class ModelConfig:
     moe_offset: int = 0
     moe_first_dense: int = 0        # first k layers use a dense MLP
     moe_capacity_factor: float = 1.25
-    moe_dispatch: str = "scatter"   # scatter | einsum (reference)
+    moe_dispatch: str = "scatter"   # scatter | einsum (reference) | dropless
+    moe_experts_held: int = 0       # dropless: this chip holds [0, held); 0 → all
 
     # --- SSM (Mamba2 / SSD) ---
     ssm_state: int = 0
@@ -56,6 +63,7 @@ class ModelConfig:
     ssm_chunk: int = 128
     ssm_conv: int = 4
     ssm_groups: int = 1
+    ssm_conv_bias: bool = False     # a bias per conv channel, before the SiLU
 
     # --- hybrid (jamba) ---
     attn_every: int = 0             # attention on layers where (i % attn_every)==attn_offset
@@ -79,6 +87,7 @@ class ModelConfig:
     remat: str = "none"             # none | full | dots
     scan_layers: bool = True
     logits_dtype: str = "float32"
+    residual_dtype: str = ""        # hybrid: the stream between layers; "" → dtype
 
     # ------------------------------------------------------------------
     @property
@@ -92,6 +101,11 @@ class ModelConfig:
     @property
     def ssm_heads(self) -> int:
         return self.ssm_d_inner // self.ssm_head_dim
+
+    @property
+    def held_experts(self) -> int:
+        """The routed experts whose weights this device holds."""
+        return self.moe_experts_held or self.moe_num_experts
 
     def is_moe_layer(self, i: int) -> bool:
         if self.moe_num_experts == 0 or i < self.moe_first_dense:
@@ -122,13 +136,14 @@ class ModelConfig:
         dense_mlp = 3 * d * self.d_ff if self.act == "silu" else 2 * d * self.d_ff
         moe_ff = self.moe_d_ff or self.d_ff
         expert = 3 * d * moe_ff if self.act == "silu" else 2 * d * moe_ff
-        moe_mlp = (self.moe_num_experts * expert
+        moe_mlp = (self.held_experts * expert
                    + self.moe_num_shared * expert
                    + d * self.moe_num_experts)            # router
         di, N, G = self.ssm_d_inner, self.ssm_state, self.ssm_groups
         nheads = self.ssm_heads if self.ssm_state else 0
         ssm = (d * (2 * di + 2 * G * N + nheads)          # in_proj
                + self.ssm_conv * (di + 2 * G * N)         # depthwise conv
+               + self.ssm_conv_bias * (di + 2 * G * N)    # its bias
                + nheads * 2                               # A_log, D
                + nheads                                   # dt_bias
                + di                                       # gated norm
@@ -169,14 +184,17 @@ class ModelConfig:
         return self.param_counts()["total"]
 
     def num_active_params(self) -> int:
-        """Active per-token params (MoE: top-k + shared only)."""
+        """Active per-token params (MoE: top-k + shared only; of held
+        experts, the top-k's expected share of them)."""
         if self.moe_num_experts == 0:
             return self.num_params()
         moe_ff = self.moe_d_ff or self.d_ff
         expert = (3 if self.act == "silu" else 2) * self.d_model * moe_ff
-        inactive_experts = self.moe_num_experts - self.moe_top_k
+        E = self.moe_num_experts
+        inactive_experts = self.held_experts * (E - self.moe_top_k) / E
         n_moe_layers = sum(self.is_moe_layer(i) for i in range(self.num_layers))
-        return self.num_params() - n_moe_layers * inactive_experts * expert
+        return round(self.num_params()
+                     - n_moe_layers * inactive_experts * expert)
 
     # -- reduced config for CPU smoke tests ------------------------------
     def reduced(self) -> "ModelConfig":

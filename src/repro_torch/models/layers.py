@@ -6,7 +6,8 @@ The forward path of the model zoo: norms (:func:`rms_norm`,
 the chunked online-softmax formulation with a recompute backward), the
 SwiGLU/GELU MLP, capacity-based MoE (scatter dispatch and the one-hot
 einsum oracle, with shared experts; the expert-parallel
-:func:`moe_shard_map` under a mesh), the Mamba2 block on the SSD scans
+:func:`moe_shard_map` under a mesh) and the dropless :func:`moe_held`
+over the experts one device holds, the Mamba2 block on the SSD scans
 (:func:`ssd_reference`, :func:`ssd_chunked`), and the embedding, the
 unembedding and the (chunked) cross-entropy; and the decode path
 (:func:`decode_attention` over a padded KV cache, :func:`mamba2_decode_step`
@@ -57,6 +58,7 @@ from repro_torch.distributed.logical import (Placed, active_rules,
                                              mesh_size, mesh_sum, sharded,
                                              spec_of)
 from repro_torch.kernels.decode_attention import ops as decode_kernel
+from repro_torch.models import tracing
 from repro_torch.models.tracing import repeated, traced_source
 
 Params = Dict[str, Any]
@@ -820,18 +822,21 @@ def mlp(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
 
 
 def init_moe(gen: torch.Generator, d: int, E: int, ff: int, n_shared: int,
-             act: str = "silu", device=None) -> Params:
+             act: str = "silu", device=None, held: int = 0) -> Params:
     """Router ``[d,E]`` and expert weights ``w_up``/``w_gate`` ``[E,d,ff]``,
     ``w_down`` ``[E,ff,d]`` (the reference's keys); ``n_shared`` shared
-    experts are one MLP of width ``ff * n_shared`` under ``shared``."""
+    experts are one MLP of width ``ff * n_shared`` under ``shared``.
+    ``held`` (0: all E): only experts ``[0, held)`` have weights here,
+    the router still scores all E (:func:`moe_held`)."""
     device = init_device(gen, device)
+    n = held or E
     p: Params = {
         "router": dense_init(gen, (d, E), scale=0.02, device=device),
-        "w_up": dense_init(gen, (E, d, ff), device=device),
-        "w_down": dense_init(gen, (E, ff, d), device=device),
+        "w_up": dense_init(gen, (n, d, ff), device=device),
+        "w_down": dense_init(gen, (n, ff, d), device=device),
     }
     if act == "silu":
-        p["w_gate"] = dense_init(gen, (E, d, ff), device=device)
+        p["w_gate"] = dense_init(gen, (n, d, ff), device=device)
     if n_shared:
         p["shared"] = init_mlp(gen, d, ff * n_shared, act, device=device)
     return p
@@ -865,6 +870,60 @@ def _balance_stats(idx: torch.Tensor, probs: torch.Tensor
 def _balance_loss(frac: torch.Tensor, mprob: torch.Tensor) -> torch.Tensor:
     """Switch-style load-balance loss: E * sum_e(frac_e * mean_prob_e)."""
     return frac.shape[-1] * (frac * mprob).sum()
+
+
+@traced_source
+def moe_held(p: Params, x: torch.Tensor, cfg
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dropless MoE over the experts this device holds.
+
+    Every token is routed over all ``moe_num_experts`` (:func:`_route`);
+    the assignments to a held expert (``p["w_up"]`` has ``held`` of
+    them: experts ``[0, held)``) are all kept, with no capacity, sorted
+    by expert, and each expert's SwiGLU runs as 2-D products on its own
+    rows.  The outputs, scaled by their gates, are summed back onto
+    their tokens (``index_put`` with ``accumulate``: a token's held
+    assignments in expert order), and the shared expert is added once.
+    What the experts not held here would add is left out: that is
+    another device's part.  The aux loss is over all E router outputs.
+    The experts' row counts are read on the host, once a call.  ``x``
+    may be wider than the config's ``dtype`` (a float32 residual
+    stream): the router scores it as it is, the experts' products run
+    in ``dtype``, and the gated sum and ``y`` keep ``x``'s dtype.
+    Returns (y [B,S,d], aux_loss)."""
+    B, S, d = x.shape
+    E, k = cfg.moe_num_experts, cfg.moe_top_k
+    held = p["w_up"].shape[0]
+    cd = dtype_of(cfg.dtype)
+    xt = x.reshape(B * S, d)
+    gates, idx, probs = _route(p, xt, k)                    # [T,k], [T,E]
+    aux = _balance_loss(*_balance_stats(idx, probs))
+    flat_e = idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)              # by expert
+    counts = torch.bincount(flat_e, minlength=E)[:held].tolist()
+    n = sum(counts)
+    tracing.count("moe.held_assignments", n)
+    if n:
+        tracing.count("moe.held_load_max", max(counts) * held / n)
+    a = order[:n]                                           # held, by expert
+    tok = a // k
+    rows = xt[tok].to(cd)
+    outs = []
+    for e, r in enumerate(rows.split(counts)):
+        if not counts[e]:
+            continue
+        h = F.silu(r @ p["w_gate"][e].to(r.dtype)) * (r @ p["w_up"][e].to(
+            r.dtype))
+        outs.append(h @ p["w_down"][e].to(r.dtype))
+    y = torch.zeros_like(xt)
+    if outs:
+        ya = torch.cat(outs).to(x.dtype) * gates.reshape(-1)[a][:, None].to(
+            x.dtype)
+        y = y.index_put((tok,), ya, accumulate=True)
+    y = y.reshape(B, S, d)
+    if cfg.moe_num_shared:
+        y = y + mlp(p["shared"], x.to(cd), cfg.act)
+    return y, aux
 
 
 def moe_capacity(tokens_per_group: int, E: int, top_k: int,
@@ -1044,13 +1103,20 @@ def _balanced_aux(fn, x, weights, w_axes, rules):
 @traced_source
 def moe_layer(p: Params, x: torch.Tensor, cfg
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The config's MoE dispatch (``moe_dispatch``: scatter or einsum).
+    """The config's MoE dispatch (``moe_dispatch``: scatter, einsum, or
+    :func:`moe_held`'s dropless one over the held experts).
 
     Under logical rules on a mesh, the reference's choice: the
     expert-parallel :func:`moe_shard_map` when ``experts`` is bound to
     an axis that divides E and the dispatch is scatter; otherwise the
     layer runs on each rank's batch rows with every expert's weights
     gathered.  Either way the aux loss is the whole batch's."""
+    if cfg.moe_dispatch == "dropless":
+        if sharded(x):
+            raise NotImplementedError(
+                "moe_layer: dropless dispatch runs on one device's held "
+                "experts; under logical rules use scatter")
+        return moe_held(p, x, cfg)
     fn = moe_scatter if cfg.moe_dispatch == "scatter" else moe_einsum
 
     def run(p_, x_):
@@ -1084,14 +1150,15 @@ def moe_layer(p: Params, x: torch.Tensor, cfg
 
 def init_mamba2(gen: torch.Generator, cfg, device=None) -> Params:
     """Mamba2 weights with the reference's *split* projections (z, x, B,
-    C, dt) and convolutions (x, B, C)."""
+    C, dt) and convolutions (x, B, C); with ``ssm_conv_bias`` a bias a
+    convolution (``conv_x_bias``, ``conv_B_bias``, ``conv_C_bias``)."""
     device = init_device(gen, device)
     d, di = cfg.d_model, cfg.ssm_d_inner
     H, N, G = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_groups
 
     def w(shape, scale=None):
         return dense_init(gen, shape, scale, device=device)
-    return {
+    p = {
         "w_z": w((d, di)),
         "w_x": w((d, di)),
         "w_B": w((d, G * N)),
@@ -1107,21 +1174,29 @@ def init_mamba2(gen: torch.Generator, cfg, device=None) -> Params:
         "norm": init_rmsnorm(di, device),
         "out_proj": w((di, d)),
     }
+    if cfg.ssm_conv_bias:
+        p.update({f"conv_{c}_bias": w((n,), 0.5)
+                  for c, n in (("x", di), ("B", G * N), ("C", G * N))})
+    return p
 
 
 @traced_source
 def causal_conv1d(w: torch.Tensor, x: torch.Tensor,
                   tail: Optional[torch.Tensor] = None,
-                  channels: Optional[str] = None) -> torch.Tensor:
-    """Depthwise causal conv via shift-and-sum, then SiLU.  w [k, C];
-    x [B, S, C]; ``tail``: [B, k-1, C] carry-in from earlier tokens
-    (zeros when None).  Sums in float32; the result has x's dtype.
-    Under logical rules it runs on each rank's rows and ``channels``
-    (a logical axis, or None: every channel)."""
+                  channels: Optional[str] = None,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv via shift-and-sum, plus ``bias`` [C] if
+    given, then SiLU.  w [k, C]; x [B, S, C]; ``tail``: [B, k-1, C]
+    carry-in from earlier tokens (zeros when None).  Sums in float32;
+    the result has x's dtype.  Under logical rules it runs on each
+    rank's rows and ``channels`` (a logical axis, or None: every
+    channel)."""
     if sharded(x):
         xa = ("batch", None, channels)
-        return local(causal_conv1d, [(None, channels), xa, xa], xa)(
-            w, x, tail)
+        return local(lambda w_, x_, t_, b_: causal_conv1d(w_, x_, t_,
+                                                          bias=b_),
+                     [(None, channels), xa, xa, (channels,)], xa)(
+            w, x, tail, bias)
     k = w.shape[0]
     if tail is None:
         tail = x.new_zeros((x.shape[0], k - 1, x.shape[2]))
@@ -1130,6 +1205,8 @@ def causal_conv1d(w: torch.Tensor, x: torch.Tensor,
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for i in range(k):
         out = out + xp[:, i:i + S].float() * w[i]
+    if bias is not None:
+        out = out + bias
     return F.silu(out).to(x.dtype)
 
 
@@ -1260,9 +1337,12 @@ def mamba2_block(p: Params, x: torch.Tensor, cfg, *, ssm_state=None,
     new_tail = ({"x": xin[:, -km1:], "B": Bc[:, -km1:], "C": Cc[:, -km1:]}
                 if return_state else None)
     tails = conv_tail or {"x": None, "B": None, "C": None}
-    xin = causal_conv1d(p["conv_x"], xin, tail=tails["x"], channels="inner")
-    Bc = causal_conv1d(p["conv_B"], Bc, tail=tails["B"])
-    Cc = causal_conv1d(p["conv_C"], Cc, tail=tails["C"])
+    xin = causal_conv1d(p["conv_x"], xin, tail=tails["x"], channels="inner",
+                        bias=p.get("conv_x_bias"))
+    Bc = causal_conv1d(p["conv_B"], Bc, tail=tails["B"],
+                       bias=p.get("conv_B_bias"))
+    Cc = causal_conv1d(p["conv_C"], Cc, tail=tails["C"],
+                       bias=p.get("conv_C_bias"))
 
     xh = constrain(xin.reshape(B_, S, H, P), "batch", None, "ssm_heads",
                    None)
@@ -1280,12 +1360,16 @@ def mamba2_block(p: Params, x: torch.Tensor, cfg, *, ssm_state=None,
     return out
 
 
-def _conv_decode(w: torch.Tensor, tail: torch.Tensor, new: torch.Tensor
+def _conv_decode(w: torch.Tensor, tail: torch.Tensor, new: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One-token depthwise conv: (out [B,1,C], new_tail [B,k-1,C])."""
+    """One-token depthwise conv (plus ``bias``, if given, before the
+    SiLU): (out [B,1,C], new_tail [B,k-1,C])."""
     full = torch.cat([tail, new], dim=1)                     # [B,k,C]
-    out = F.silu((full.float() * w[None]).sum(dim=1, keepdim=True))
-    return out.to(new.dtype), full[:, 1:]
+    out = (full.float() * w[None]).sum(dim=1, keepdim=True)
+    if bias is not None:
+        out = out + bias
+    return F.silu(out).to(new.dtype), full[:, 1:]
 
 
 @traced_source
@@ -1300,11 +1384,14 @@ def mamba2_decode_step(p: Params, x: torch.Tensor, cfg, *,
     z = x @ p["w_z"].to(x.dtype)
     dt_raw = x @ p["w_dt"].to(x.dtype)
     xin, tail_x = _conv_decode(p["conv_x"], conv_tail["x"],
-                               x @ p["w_x"].to(x.dtype))
+                               x @ p["w_x"].to(x.dtype),
+                               p.get("conv_x_bias"))
     Bc, tail_B = _conv_decode(p["conv_B"], conv_tail["B"],
-                              x @ p["w_B"].to(x.dtype))
+                              x @ p["w_B"].to(x.dtype),
+                              p.get("conv_B_bias"))
     Cc, tail_C = _conv_decode(p["conv_C"], conv_tail["C"],
-                              x @ p["w_C"].to(x.dtype))
+                              x @ p["w_C"].to(x.dtype),
+                              p.get("conv_C_bias"))
     new_tail = {"x": tail_x, "B": tail_B, "C": tail_C}
 
     xh = xin.reshape(B_, H, P)
@@ -1357,10 +1444,15 @@ def embed(p: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
 
 
 @traced_source
-def unembed(table: torch.Tensor, x: torch.Tensor, dtype) -> torch.Tensor:
+def unembed(table: torch.Tensor, x: torch.Tensor, dtype,
+            logits_scaling: float = 1.0) -> torch.Tensor:
     """Logits in x's dtype (a bfloat16 forward rounds them to bfloat16),
-    then cast to ``dtype``."""
-    return (x @ table.t().to(x.dtype)).to(dtype)
+    divided by ``logits_scaling`` unless it is 1, then cast to
+    ``dtype``."""
+    y = x @ table.t().to(x.dtype)
+    if logits_scaling != 1.0:
+        y = y / logits_scaling
+    return y.to(dtype)
 
 
 @traced_source
@@ -1425,19 +1517,22 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 @traced_source
 def chunked_loss(table: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
-                 chunk: int, logits_dtype) -> torch.Tensor:
+                 chunk: int, logits_dtype,
+                 logits_scaling: float = 1.0) -> torch.Tensor:
     """Cross-entropy without materializing [B,S,V]: a loop over S chunks
-    (``chunk`` ≤ 0 or ≥ S: one pass)."""
+    (``chunk`` ≤ 0 or ≥ S: one pass), of the logits :func:`unembed`
+    gives with ``logits_scaling``."""
     B, S, d = x.shape
     if chunk <= 0 or S <= chunk:
-        return cross_entropy(unembed(table, x, logits_dtype), labels)
+        return cross_entropy(unembed(table, x, logits_dtype, logits_scaling),
+                             labels)
     if S % chunk:
         raise ValueError(f"chunked_loss: chunk {chunk} does not divide the "
                          f"sequence length {S}")
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     for c in range(S // chunk):
         sl = slice(c * chunk, (c + 1) * chunk)
-        lf = unembed(table, x[:, sl], logits_dtype).float()
+        lf = unembed(table, x[:, sl], logits_dtype, logits_scaling).float()
         if sharded(lf):
             tot = tot + token_nll(lf, labels[:, sl]).sum()
             continue
