@@ -40,6 +40,17 @@ Phases, each of which fails the script (non-zero exit, traceback, no
      scaled_dot_product_attention`` is the library yardstick).  Each
      float32 shape is also held to 2e-5 with inputs x4 (scores of tens),
      and carries the 3xTF32 tensor-core bound beside its CUDA-core one;
+ 5b. the models' attention on the card (``phase_flash_train``): the bf16
+     forward with its log-sum-exp and its backward (delta, dK/dV, dQ
+     kernels) at internlm2-1.8b's and granite-4.0-h-small's train
+     layers, held to the plain scans within ``flash_ref.TOL`` (each
+     output's gap row by row, lse's absolute gap; each side's backward
+     on its own forward's out and lse), a rerun bit for bit, launch
+     counts, call and device ms beside the bound of the function's five
+     products and of the design's seven, the scans' ms and SDPA's
+     forward and backward as the yardstick; the
+     build phase also fails where the forward's or the backward's
+     product kernels hold no HGMMA (``HGMMA_FUNCTIONS``);
   6. rmsnorm kernel against its plain version at the nn scope's shapes, a
      ragged one and llama3.2-1b's width (and 8192) in bf16, plus times
      (``torch.nn.functional.rms_norm`` is the yardstick);
@@ -341,6 +352,7 @@ from repro_torch.kernels.matmul import ops as matmul_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_ref)
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import (ssd, ssd_chunk,  # noqa: E402
@@ -432,6 +444,10 @@ SSD_HEADLINE = SSD_SHAPES[1]
 #: version, ``ssd`` to the sequential recurrence): the nn scope's rows
 #: and mamba2-780m's SSD layer.
 SSD_TILE_SHAPES = [SSD_SHAPES[0], SSD_SHAPES[1], SSD_SHAPES[3]]
+#: (B, S, H, K, D), causal bf16: the train cells' attention layers,
+#: internlm2-1.8b (B4, 16 heads over 8 kv heads of 128) and
+#: granite-4.0-h-small (B8, 32 over 8 of 128).
+FLASH_TRAIN_SHAPES = [(4, 4096, 16, 8, 128), (8, 4096, 32, 8, 128)]
 #: (dtype, B, Smax, H, K, D, lengths): the chat cell's pool
 #: (internlm2-1.8b's attention, 64 slots x 2,560 in bf16) with live
 #: lengths drawn from the chat mix (``chat``) and with every slot full;
@@ -504,7 +520,14 @@ def device_ms(fn, kernels, calls: int = 20):
 #: the kernels a call launches.
 MATMUL_KERNELS = ("matmul_simt_kernel", "matmul_wgmma_kernel")
 FLASH_KERNELS = ("flash_attention_wgmma_kernel", "flash_attention_ffma_kernel",
-                 "flash_attention_ffma_combine_kernel")
+                 "flash_attention_ffma_combine_kernel",
+                 "flash_attention_bwd_delta_kernel",
+                 "flash_attention_bwd_dkdv_kernel",
+                 "flash_attention_bwd_dq_kernel")
+#: The bf16 backward's three kernels (a subset of ``FLASH_KERNELS``).
+FLASH_BWD_KERNELS = ("flash_attention_bwd_delta_kernel",
+                     "flash_attention_bwd_dkdv_kernel",
+                     "flash_attention_bwd_dq_kernel")
 HISTOGRAM_KERNELS = ("histogram_kernel",)
 RMSNORM_KERNELS = ("rmsnorm_kernel",)
 SSD_KERNELS = ("ssd_chunk_tiled_kernel",)
@@ -551,6 +574,11 @@ def phase_device() -> dict:
 #: Tensor-core instructions each library must hold: the bf16 ``wgmma``
 #: variants' HGMMA.
 TENSOR_CORE_OPS = {"matmul": ("HGMMA",), "flash_attention": ("HGMMA",)}
+#: ``__global__`` functions whose every instantiation must hold HGMMA:
+#: the bf16 flash forward and its backward's two product kernels.
+HGMMA_FUNCTIONS = {"flash_attention": ("flash_attention_wgmma_kernel",
+                                       "flash_attention_bwd_dkdv_kernel",
+                                       "flash_attention_bwd_dq_kernel")}
 
 
 def phase_build() -> dict:
@@ -572,6 +600,7 @@ def phase_sass(names) -> dict:
     warpgroup ``wgmma``) and ``HMMA`` (warp ``mma.sync``)."""
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     counts = {}
+    per_function = {}
     for name in names:
         sass = subprocess.run(
             [cuobjdump, "-sass", str(_build.library_path(name))],
@@ -579,6 +608,14 @@ def phase_sass(names) -> dict:
         counts[name] = {op: sum(1 for line in sass.splitlines()
                                 if f" {op}." in line or f" {op} " in line)
                         for op in ("HGMMA", "HMMA")}
+        # HGMMA by function: a "Function : <mangled name>" line opens each
+        fn = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                per_function.setdefault((name, fn), 0)
+            elif fn is not None and (" HGMMA." in line or " HGMMA " in line):
+                per_function[name, fn] += 1
     log(f"sass tensor-core instructions: {counts}; flash_attention HMMA "
         f"{counts['flash_attention']['HMMA']} (float32 runs on the CUDA "
         f"cores: ffma)")
@@ -586,6 +623,14 @@ def phase_sass(names) -> dict:
         for op in ops:
             if counts[name][op] == 0:
                 raise AssertionError(f"{name}: no {op} in its library")
+    for name, fns in HGMMA_FUNCTIONS.items():
+        for want in fns:
+            found = {f: n for (lib, f), n in per_function.items()
+                     if lib == name and want in f}
+            log(f"sass HGMMA in {want}: {sorted(found.values())}")
+            if not found or min(found.values()) == 0:
+                raise AssertionError(f"{name}: {want} has an instantiation "
+                                     f"without HGMMA: {found}")
     return counts
 
 
@@ -867,6 +912,100 @@ def phase_flash(hw: dict) -> dict:
         "src/repro/kernels/flash_attention/kernel.py:70",
         "src/repro/kernels/flash_attention/kernel.py::flash_attention_pallas",
         shapes, FLASH_HEADLINE, tiles)
+
+
+def phase_flash_train(hw: dict) -> dict:
+    """The models' attention on the card (``flash_ops.attention_fwd`` with
+    its log-sum-exp and ``attention_bwd``) at :data:`FLASH_TRAIN_SHAPES`:
+    held to the plain scans (``layers._flash_fwd_plain``,
+    ``_flash_bwd_plain``, chunks 512, what the models ran before the
+    kernels), each backward on its own side's forward, within
+    ``flash_ref.TOL`` (out, lse, dq, dk, dv); a rerun bit for bit, one
+    and three launches; call and device ms beside two bounds: the
+    function's (two products a kept (query, key) pair forward, five
+    backward) and the design's backward, seven (the dQ kernel's second S
+    and dP, the price of summing with no atomics); the scans' ms and
+    SDPA's forward and backward, which the port never calls."""
+    gen = torch.Generator("cuda").manual_seed(0)
+    rows = []
+    for B, S, H, K, D in FLASH_TRAIN_SHAPES:
+        q = torch.randn((B, S, H, D), generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn((B, S, K, D), generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        dout = torch.randn((B, S, H, D), generator=gen,
+                           device="cuda").bfloat16()
+        what = f"flash train bf16 B={B} S={S} H={H} K={K} D={D} causal"
+        sched = (True, 512, 512, True)
+        before = dict(flash_ops.launches_by_variant)
+        out, lse = flash_ops.attention_fwd(q, k, v, True, True)
+        grads = flash_ops.attention_bwd(q, k, v, out, lse, dout, True)
+        ran = {n: flash_ops.launches_by_variant[n] - before[n]
+               for n in before}
+        if ran != {"wgmma": 1, "ffma": 0, "bwd_delta": 1, "bwd_dkdv": 1,
+                   "bwd_dq": 1}:
+            raise AssertionError(f"{what}: launches {ran}")
+        again = flash_ops.attention_bwd(q, k, v, out, lse, dout, True)
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f"{what}: a rerun is not bit for bit")
+        del again
+        p_out, p_lse = model_layers._flash_fwd_plain(q, k, v, *sched)
+        want = {"out": p_out.to(q.dtype), "lse": p_lse}
+        del p_out
+        want.update(zip(("dq", "dk", "dv"), model_layers._flash_bwd_plain(
+            q, k, v, want["out"], p_lse, dout, *sched)))
+        got = {"out": out, "lse": lse, "dq": grads[0], "dk": grads[1],
+               "dv": grads[2]}
+        gaps = flash_ref.gaps(got, want)
+        del want, got
+        if flash_ref.over(gaps):
+            raise AssertionError(f"{what}: gaps to the scans {gaps} (tol "
+                                 f"{flash_ref.TOL})")
+        pairs = flash_ops.kept_pairs(S, S, True)
+        fwd = lambda: flash_ops.attention_fwd(q, k, v, True, True)
+        bwd = lambda: flash_ops.attention_bwd(q, k, v, out, lse, dout, True)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        dt = dout.transpose(1, 2)
+
+        def sdpa():
+            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True)
+            return torch.autograd.grad(o, (qt, kt, vt), dt)
+        row = {
+            "B": B, "S": S, "H": H, "K": K, "D": D, "causal": True,
+            "gaps": gaps, "tol": flash_ref.TOL,
+            "fwd_ms": time_ms(fwd),
+            "fwd_device_ms": device_ms(fwd, FLASH_KERNELS[:1]),
+            "bwd_ms": time_ms(bwd),
+            "bwd_device_ms": device_ms(bwd, FLASH_BWD_KERNELS),
+            "bwd_device_ms_by_kernel": {
+                n: device_ms(bwd, (n,)) for n in FLASH_BWD_KERNELS},
+            "plain_fwd_ms": time_ms(lambda: model_layers._flash_fwd_plain(
+                q, k, v, *sched), target_s=0.2),
+            "plain_bwd_ms": time_ms(lambda: model_layers._flash_bwd_plain(
+                q, k, v, out, lse, dout, *sched), target_s=0.2),
+            "library_fwd_bwd_ms": time_ms(sdpa),
+            "fwd_bound_ms": bound(hw, 0, 4.0 * B * H * D * pairs,
+                                  torch.bfloat16)["bound_ms"],
+            "bwd_bound_ms": bound(hw, 0, 10.0 * B * H * D * pairs,
+                                  torch.bfloat16)["bound_ms"],
+            "bwd_design_bound_ms": bound(hw, 0, 14.0 * B * H * D * pairs,
+                                         torch.bfloat16)["bound_ms"],
+        }
+        shown = ", ".join(f"{n} {g:.3g}" for n, g in gaps.items())
+        log(f"{what}: gaps to the scans {shown} "
+            f"(tol {flash_ref.TOL}); forward with lse {row['fwd_ms']:.4f} "
+            f"ms (device {fmt_ms(row['fwd_device_ms'])}, bound "
+            f"{row['fwd_bound_ms']:.4f}); backward {row['bwd_ms']:.4f} ms "
+            f"(device {fmt_ms(row['bwd_device_ms'])}: "
+            + ", ".join(f"{n} {fmt_ms(t)}" for n, t in
+                        row["bwd_device_ms_by_kernel"].items())
+            + f"; bound {row['bwd_bound_ms']:.4f}, the design's "
+            f"{row['bwd_design_bound_ms']:.4f}); plain scans "
+            f"{row['plain_fwd_ms']:.3f} + {row['plain_bwd_ms']:.3f} ms; "
+            f"sdpa forward and backward {row['library_fwd_bwd_ms']:.4f} ms")
+        rows.append(row)
+    return {"name": "flash_attention train", "shapes": rows}
 
 
 def phase_rmsnorm(hw: dict) -> dict:
@@ -3876,6 +4015,7 @@ def main() -> int:
     sass = phase_build()
     kernels = [phase_matmul(hw), phase_histogram(hw), phase_flash(hw),
                phase_rmsnorm(hw), phase_ssd(hw), phase_decode_attention(hw)]
+    flash_train = phase_flash_train(hw)
     models = phase_models(hw)
     host = phase_host_path()
     launches, by_variant, model_free = phase_main_path()
@@ -3912,6 +4052,7 @@ def main() -> int:
     print(json.dumps({"dryrun": dry}), flush=True)
     print(json.dumps({"multirank": multirank}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"flash_train": flash_train}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

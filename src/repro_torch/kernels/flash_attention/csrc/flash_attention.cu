@@ -1,4 +1,5 @@
-// Flash attention forward, causal or full, with grouped kv heads (GQA):
+// Flash attention, causal or full, with grouped kv heads (GQA): the
+// forward, and (bf16 only) its backward, further down:
 // out[b, i, h, :] = softmax_j(q[b, i, h, :] . k[b, j, kh, :] / sqrt(D)) v[b, j,
 // kh, :] with kh = h / (H / K), the causal mask j <= i (both counted from
 // 0), float32 softmax and accumulation, output in the inputs' type.
@@ -42,7 +43,9 @@
 // wgmma.m64nDk16 with V from shared memory, MN-major like matmul's B.
 // Only a tile that crosses the diagonal or the end of the keys is masked;
 // the causal key loop stops at the block's diagonal, and the heaviest
-// query blocks are launched first.
+// query blocks are launched first.  P is rounded to bf16 before the row
+// sum as before the product, as models/layers.py::_flash_fwd_scan rounds
+// it; on request each row's log-sum-exp is written for the backward.
 //
 // ffma (float32): the CUDA cores, redesigned against what held the first
 // body (11 % of its bound at B2 S1024 H4 D64: 128 blocks of 8 warps for
@@ -103,6 +106,7 @@ constexpr int W_BQ = 128;        // query rows per block: two consumers of 64
 constexpr int W_BKV = 128;       // keys per tile
 constexpr int W_THREADS = 384;   // producer + two consumers
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct Tiles {
@@ -144,9 +148,9 @@ __global__ void __launch_bounds__(W_THREADS, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                              const __grid_constant__ CUtensorMap map_k,
                              const __grid_constant__ CUtensorMap map_v,
-                             __nv_bfloat16* __restrict__ out, int B, int Sq,
-                             int Sk, int H, int K, int causal,
-                             float scale_log2) {
+                             __nv_bfloat16* __restrict__ out,
+                             float* __restrict__ lse, int B, int Sq, int Sk,
+                             int H, int K, int causal, float scale_log2) {
   using Tl = Tiles<D>;
   constexpr int RB = Tl::RB;
   extern __shared__ uint8_t smem_raw[];
@@ -265,6 +269,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                   sc[4 * j + 2 * hh + e] = -INFINITY;
               }
         }
+        uint32_t pa[8][4];
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           float mx = -INFINITY;
@@ -276,32 +281,26 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           const float m_use = m_new == -INFINITY ? 0.f : m_new;
           const float corr = exp2f(m[hh] - m_use);
           m[hh] = m_new;
+          // P in bf16 as the register A operand of 8 k steps of 16 keys
+          // (the accumulator's columns 16 kk .. 16 kk + 15 are A's k
+          // columns: sc[4 j + 2 hh + e] goes to pa[j / 2][2 (j % 2) + hh]),
+          // and the row sum over the rounded values, as the scans take it
           float sum = 0.f;
 #pragma unroll
-          for (int j = 0; j < 16; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float p =
-                  exp2f(fmaf(sc[4 * j + 2 * hh + e], scale_log2, -m_use));
-              sc[4 * j + 2 * hh + e] = p;
-              sum += p;
-            }
+          for (int j = 0; j < 16; ++j) {
+            const uint32_t packed = pack_bf16(
+                exp2f(fmaf(sc[4 * j + 2 * hh], scale_log2, -m_use)),
+                exp2f(fmaf(sc[4 * j + 2 * hh + 1], scale_log2, -m_use)));
+            pa[j / 2][2 * (j % 2) + hh] = packed;
+            sum += __uint_as_float(packed << 16) +
+                   __uint_as_float(packed & 0xffff0000u);
+          }
           lsum[hh] = lsum[hh] * corr + sum;
 #pragma unroll
           for (int j = 0; j < D / 8; ++j) {
             o[4 * j + 2 * hh] *= corr;
             o[4 * j + 2 * hh + 1] *= corr;
           }
-        }
-        // P in bf16 as the register A operand of 8 k steps of 16 keys: the
-        // accumulator's columns 16 kk .. 16 kk + 15 are A's k columns
-        uint32_t pa[8][4];
-#pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
-          pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-          pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-          pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
         }
         hopper::mbar_wait(&v_full[s], parity);
         hopper::fence_regs(o);
@@ -329,6 +328,11 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       const float li = quad_sum(lsum[hh]);
       const float inv = li == 0.f ? 0.f : 1.f / li;
       if (qp >= Sq) continue;
+      // the row's log-sum-exp of the scaled scores, natural log; a row
+      // with no key +inf (the scans' contract)
+      if (lse != nullptr && l % 4 == 0)
+        lse[(static_cast<size_t>(b) * H + h) * Sq + qp] =
+            li == 0.f ? INFINITY : (m[hh] + log2f(li)) * kLn2;
       __nv_bfloat16* orow =
           out + ((static_cast<size_t>(b) * Sq + qp) * H + h) * D;
 #pragma unroll
@@ -342,8 +346,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 int B, int Sq, int Sk, int H, int K, int causal, float scale,
-                 cudaStream_t stream) {
+                 float* lse, int B, int Sq, int Sk, int H, int K, int causal,
+                 float scale, cudaStream_t stream) {
   using Tl = Tiles<D>;
   CUtensorMap maps[3];
   const uint64_t dq[3] = {static_cast<uint64_t>(H) * D,
@@ -369,12 +373,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   flash_attention_wgmma_kernel<D><<<static_cast<unsigned>(blocks), W_THREADS,
                                     Tl::SMEM, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), B, Sq, Sk,
-      H, K, causal, scale * kLog2e);
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), lse, B, Sq,
+      Sk, H, K, causal, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
-
-// ------------------------------------------------------------------ ffma
 
 // cp.async; a src_bytes of 0 writes zeros and reads nothing
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
@@ -398,6 +400,591 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+// One arrival on `bar` once every cp.async this thread has started has
+// landed (the arrival is counted in the barrier's init count).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   hopper::smem_u32(bar))
+               : "memory");
+}
+
+// ------------------------------------------------------------ backward
+
+// The backward of the bf16 variant, GQA-native and deterministic: three
+// launches, no floating-point atomic, each output element written once
+// by one block.  It replaces no TPU kernel: the Pallas kernel is forward
+// only and the JAX models train through the XLA formulation, so this is
+// the port's own, held to models/layers.py::_flash_bwd_scan.
+//  (a) delta: one warp a (batch, query, head) row writes
+//      delta = rowsum(dO o out) in float32, [B, H, Sq] like lse.
+//  (b) dK/dV: a block of two warpgroups a (batch, kv head, 128 keys),
+//      with no producer warpgroup (a third would cut a thread's
+//      registers to 168, and dK and dV alone take 128 at D = 128).  Its
+//      warp 0 loads the block's k and v tiles once, then keeps a ring of
+//      BW_STAGES (q, dO) tiles of 64 query rows full by TMA (lane 0),
+//      with each tile's lse and delta rows by cp.async, refilling a
+//      stage once both warpgroups have released it.  The loop runs over
+//      the G query heads of the kv head and, under the causal mask, the
+//      query tiles at or after the block's keys.  Each warpgroup owns 64
+//      keys and computes, per tile, the transposed products (keys the
+//      wgmma M):
+//      S^T = K Q^T and P^T = exp2(S^T scale log2 e - lse log2 e), rounded
+//      to bf16 in registers; dV += P^T dO; dP^T = V dO^T; dS^T = P^T o
+//      (dP^T - delta) scale, rounded to bf16; dK += dS^T Q.  dK and dV sum
+//      in float32 registers over the whole group, so no fold follows.
+//  (c) dQ: a block of 384 threads a (batch, query head, 128 query rows),
+//      shaped as the forward: q and dO loaded once, a ring of 64-key k and
+//      v tiles, the causal loop stopping at the block's diagonal; per tile
+//      S, P, dP = dO V^T, dS as above, and dQ += dS K.
+// Seven products in all, two more than a backward that adds dQ with
+// atomics, so that a rerun reads the same bits.  The rounding is the
+// scans' (models/layers.py::_flash_bwd_scan): P rounded to bf16 before
+// dV's product, dS before dQ's and dK's, scores and sums in float32.
+// It differs where the scans fold the scale into q and dO in bf16: here
+// the float32 scores and dS are scaled (exact at D = 64, whose scale is
+// a power of two).  Bound: 7 products of 2 D flops per kept (query, key)
+// pair; at internlm2's layer (B1 S4096 H16 K8 D128 causal) 0.243 ms at
+// 989 TFLOP/s.
+constexpr int BW_BK = 128;      // dK/dV: keys a block, two consumers of 64
+constexpr int BW_BQ = 64;       // dK/dV: query rows a tile of the ring
+constexpr int BQ_BQ = 128;      // dQ: query rows a block, two consumers
+constexpr int BQ_BK = 64;       // dQ: keys a tile of the ring
+constexpr int BW_STAGES = 3;    // both rings
+// dK/dV: two warpgroups and no producer warpgroup, so that a thread may
+// hold 255 registers (dK and dV take 128 at D = 128; with a third
+// warpgroup ptxas allots 168 and spills); warp 0 also loads
+constexpr int KV_THREADS = 256;
+
+template <int D>
+struct BwdTiles {
+  static constexpr int CH = D > 64 ? 64 : D;
+  static constexpr int NCH = D / CH;
+  static constexpr int RB = CH * 2;
+  // dK/dV: k and v of the block, a ring of q and dO, then lse and delta
+  // rows of each stage and 1 + 3 * BW_STAGES barriers
+  static constexpr int KB_BYTES = BW_BK * D * 2;
+  static constexpr int QT_BYTES = BW_BQ * D * 2;
+  static constexpr int KV_SMEM = 2 * KB_BYTES + BW_STAGES * 2 * QT_BYTES +
+                                 BW_STAGES * 2 * BW_BQ * 4 +
+                                 (1 + 3 * BW_STAGES) * 8 + 1024;
+  // dQ: q and dO of the block, a ring of k and v, 1 + 3 * BW_STAGES
+  // barriers
+  static constexpr int QB_BYTES = BQ_BQ * D * 2;
+  static constexpr int KT_BYTES = BQ_BK * D * 2;
+  static constexpr int Q_SMEM = 2 * QB_BYTES + BW_STAGES * 2 * KT_BYTES +
+                                (1 + 3 * BW_STAGES) * 8 + 1024;
+};
+
+// D[64 x 64] = A[64 x D] . B[64 x D]^T, both K-major in shared memory:
+// A at `a` (rows of a tile of `a_rows`, this warpgroup's first row
+// already added), B a tile of 64 rows at `b`
+template <int D>
+__device__ __forceinline__ void product_abt(float (&d)[32], const uint8_t* a,
+                                            int a_rows, const uint8_t* b) {
+  using Tl = BwdTiles<D>;
+  constexpr int RB = Tl::RB;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int col = (kk * 16 % Tl::CH) * 2;
+    const int box = kk * 16 / Tl::CH;
+    hopper::wgmma_m64n64k16_ss<0>(
+        d, hopper::make_desc(a + box * a_rows * RB + col, 16, 8 * RB, RB),
+        hopper::make_desc(b + box * 64 * RB + col, 16, 8 * RB, RB), kk > 0);
+  }
+}
+
+// acc[64 x D] += A[64 x 64] . B[64 x D]: A the bf16 fragments of a 64 x 64
+// accumulator (four k steps of 16), B a tile of 64 rows in shared memory,
+// MN-major
+template <int D>
+__device__ __forceinline__ void product_ab(float (&acc)[D / 2],
+                                           const uint32_t (&a)[4][4],
+                                           const uint8_t* b) {
+  constexpr int RB = BwdTiles<D>::RB;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    pv_step<D>(acc, a[kk], hopper::make_desc(b + kk * 16 * RB, 64 * RB,
+                                             8 * RB, RB));
+}
+
+// a 64 x 64 float accumulator as bf16 A fragments of four k steps
+__device__ __forceinline__ void to_operand(const float (&x)[32],
+                                           uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, size_t stride,
+                                           const float (&acc)[D / 2], int row0,
+                                           int rows, int l) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row0 + 8 * hh;
+    if (r >= rows) continue;
+    __nv_bfloat16* p = dst + static_cast<size_t>(r) * stride;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(p + 8 * j + 2 * (l % 4)) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_attention_bwd_delta_kernel(const __nv_bfloat16* __restrict__ out,
+                                 const __nv_bfloat16* __restrict__ dout,
+                                 float* __restrict__ delta, int B, int Sq,
+                                 int H) {
+  const size_t row = static_cast<size_t>(blockIdx.x) * 8 + threadIdx.x / 32;
+  if (row >= static_cast<size_t>(B) * Sq * H) return;
+  const int lane = threadIdx.x % 32;
+  const __nv_bfloat162* o =
+      reinterpret_cast<const __nv_bfloat162*>(out + row * D) + lane * (D / 64);
+  const __nv_bfloat162* g =
+      reinterpret_cast<const __nv_bfloat162*>(dout + row * D) + lane * (D / 64);
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < D / 64; ++i) {
+    const float2 a = __bfloat1622float2(o[i]), c = __bfloat1622float2(g[i]);
+    acc = fmaf(a.x, c.x, fmaf(a.y, c.y, acc));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const int h = static_cast<int>(row % H);
+    const size_t bq = row / H;   // b * Sq + q
+    delta[(bq / Sq * H + h) * Sq + bq % Sq] = acc;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(KV_THREADS, 1)
+flash_attention_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_k,
+                                const __grid_constant__ CUtensorMap map_v,
+                                const __grid_constant__ CUtensorMap map_q,
+                                const __grid_constant__ CUtensorMap map_do,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                __nv_bfloat16* __restrict__ dk,
+                                __nv_bfloat16* __restrict__ dv, int B, int Sq,
+                                int Sk, int H, int K, int causal, float scale,
+                                float scale_log2) {
+  using Tl = BwdTiles<D>;
+  constexpr int RB = Tl::RB;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* vs = ks + Tl::KB_BYTES;
+  uint8_t* qs = vs + Tl::KB_BYTES;                    // [STAGES][64 x D]
+  uint8_t* dos = qs + BW_STAGES * Tl::QT_BYTES;       // [STAGES][64 x D]
+  float* rows_lse = reinterpret_cast<float*>(dos + BW_STAGES * Tl::QT_BYTES);
+  float* rows_delta = rows_lse + BW_STAGES * BW_BQ;
+  uint64_t* kv_full =
+      reinterpret_cast<uint64_t*>(rows_delta + BW_STAGES * BW_BQ);
+  uint64_t* q_full = kv_full + 1;                    // q, lse and delta
+  uint64_t* do_full = q_full + BW_STAGES;
+  uint64_t* empty = do_full + BW_STAGES;
+
+  // heaviest first: under the causal mask the first key tiles meet the
+  // most query tiles
+  const int BK_ = B * K;
+  const int kblk = static_cast<int>(blockIdx.x) / BK_;
+  const int kh = static_cast<int>(blockIdx.x) % BK_ % K;
+  const int b = static_cast<int>(blockIdx.x) % BK_ / K;
+  const int G = H / K;
+  const int k0 = kblk * BW_BK;
+  const int nq = (Sq + BW_BQ - 1) / BW_BQ;
+  // causal: query tiles before the block's first key are all masked
+  const int qt0 = causal ? min(k0 / BW_BQ, nq) : 0;
+  const int per_head = nq - qt0;
+  const int iters = G * per_head;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < BW_STAGES; ++s) {
+      hopper::mbar_init(&q_full[s], 1 + 32);   // TMA lane + warp 0's copies
+      hopper::mbar_init(&do_full[s], 1);
+      hopper::mbar_init(&empty[s], KV_THREADS);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int cw = threadIdx.x / 128;        // this warpgroup's 64 keys
+  const int tid = threadIdx.x % 128;
+  const int w = tid / 32, l = tid % 32;
+  // warp 0 also loads: tile t's q and dO by TMA (lane 0) into stage
+  // t % BW_STAGES, and its lse and delta rows by cp.async (zeros past the
+  // queries), all completing q_full / do_full
+  const bool loader = threadIdx.x < 32;
+  auto load_tile = [&](int t) {
+    const int s = t % BW_STAGES;
+    const int h = kh * G + t / per_head;
+    const int q0 = (qt0 + t % per_head) * BW_BQ;
+    if (l == 0) {
+      hopper::mbar_arrive_expect_tx(&q_full[s], Tl::QT_BYTES);
+#pragma unroll
+      for (int c = 0; c < Tl::NCH; ++c)
+        hopper::tma_load_3d(qs + s * Tl::QT_BYTES + c * BW_BQ * RB, &map_q,
+                            &q_full[s], h * D + c * Tl::CH, q0, b);
+      hopper::mbar_arrive_expect_tx(&do_full[s], Tl::QT_BYTES);
+#pragma unroll
+      for (int c = 0; c < Tl::NCH; ++c)
+        hopper::tma_load_3d(dos + s * Tl::QT_BYTES + c * BW_BQ * RB, &map_do,
+                            &do_full[s], h * D + c * Tl::CH, q0, b);
+    }
+    const size_t base = (static_cast<size_t>(b) * H + h) * Sq;
+#pragma unroll
+    for (int r = l; r < BW_BQ; r += 32) {
+      const bool in = q0 + r < Sq;
+      cp_async4(rows_lse + s * BW_BQ + r, lse + base + (in ? q0 + r : 0), in);
+      cp_async4(rows_delta + s * BW_BQ + r, delta + base + (in ? q0 + r : 0),
+                in);
+    }
+    cp_async_arrive(&q_full[s]);
+  };
+  if (loader) {
+    if (l == 0) {
+      hopper::mbar_arrive_expect_tx(kv_full, 2 * Tl::KB_BYTES);
+#pragma unroll
+      for (int c = 0; c < Tl::NCH; ++c) {
+        hopper::tma_load_3d(ks + c * BW_BK * RB, &map_k, kv_full,
+                            kh * D + c * Tl::CH, k0, b);
+        hopper::tma_load_3d(vs + c * BW_BK * RB, &map_v, kv_full,
+                            kh * D + c * Tl::CH, k0, b);
+      }
+    }
+    for (int t = 0; t < min(BW_STAGES, iters); ++t) load_tile(t);
+  }
+  {
+    const int kw0 = k0 + cw * 64;
+    // this thread's two keys: kw0 + 16 w + l / 4 + 8 hh
+    const int key0 = kw0 + w * 16 + l / 4;
+    const uint8_t* ka = ks + cw * 64 * RB;
+    const uint8_t* va = vs + cw * 64 * RB;
+
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    hopper::mbar_wait(kv_full, 0);
+    for (int t = 0; t < iters; ++t) {
+      // refill the stage tile t - 1 held once both warpgroups are done
+      if (loader && t >= 1 && t - 1 + BW_STAGES < iters) {
+        hopper::mbar_wait(&empty[(t - 1) % BW_STAGES],
+                          ((t - 1) / BW_STAGES) & 1);
+        load_tile(t - 1 + BW_STAGES);
+      }
+      const int s = t % BW_STAGES;
+      const uint32_t parity = (t / BW_STAGES) & 1;
+      const int q0 = (qt0 + t % per_head) * BW_BQ;
+      const uint8_t* qt = qs + s * Tl::QT_BYTES;
+      const uint8_t* dot = dos + s * Tl::QT_BYTES;
+      hopper::mbar_wait(&q_full[s], parity);
+      // a causal tile wholly before this warpgroup's keys adds nothing
+      if (!causal || kw0 <= q0 + BW_BQ - 1) {
+        float st[32];   // S^T, then P^T: st[4 j + 2 hh + e] is key
+                        // key0 + 8 hh, query q0 + 8 j + 2 (l % 4) + e
+        hopper::wgmma_fence();
+        product_abt<D>(st, ka, BW_BK, qt);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(st);
+        const float* ls = rows_lse + s * BW_BQ + 2 * (l % 4);
+        // masked: keys after the query (causal), queries past the end
+        const bool edge = (causal && kw0 + 63 > q0) || q0 + BW_BQ > Sq;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 lj = *reinterpret_cast<const float2*>(ls + 8 * j);
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float& x = st[4 * j + 2 * hh + e];
+              const int qp = q0 + 8 * j + 2 * (l % 4) + e;
+              x = exp2f(fmaf(x, scale_log2, -(e ? lj.y : lj.x) * kLog2e));
+              if (edge && (qp >= Sq || (causal && key0 + 8 * hh > qp)))
+                x = 0.f;
+            }
+        }
+        uint32_t pa[4][4];
+        to_operand(st, pa);
+        hopper::mbar_wait(&do_full[s], parity);
+        float dpt[32];   // dP^T, laid out as st
+        hopper::fence_regs(dv_acc);
+        hopper::wgmma_fence();
+        product_ab<D>(dv_acc, pa, dot);
+        product_abt<D>(dpt, va, BW_BK, dot);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dpt);
+        hopper::fence_regs(dv_acc);
+        const float* dl = rows_delta + s * BW_BQ + 2 * (l % 4);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 dj = *reinterpret_cast<const float2*>(dl + 8 * j);
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = 4 * j + 2 * hh + e;
+              dpt[i] = st[i] * (dpt[i] - (e ? dj.y : dj.x)) * scale;
+            }
+        }
+        uint32_t da[4][4];
+        to_operand(dpt, da);
+        hopper::fence_regs(dk_acc);
+        hopper::wgmma_fence();
+        product_ab<D>(dk_acc, da, qt);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dk_acc);
+      } else {
+        hopper::mbar_wait(&do_full[s], parity);   // the stage must be whole
+      }
+      hopper::mbar_arrive(&empty[s]);
+    }
+    const size_t stride = static_cast<size_t>(K) * D;
+    const size_t first = static_cast<size_t>(b) * Sk * K * D + kh * D;
+    store_rows<D>(dk + first, stride, dk_acc, key0, Sk, l);
+    store_rows<D>(dv + first, stride, dv_acc, key0, Sk, l);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(W_THREADS, 1)
+flash_attention_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
+                              const __grid_constant__ CUtensorMap map_do,
+                              const __grid_constant__ CUtensorMap map_k,
+                              const __grid_constant__ CUtensorMap map_v,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dq, int B, int Sq,
+                              int Sk, int H, int K, int causal, float scale,
+                              float scale_log2) {
+  using Tl = BwdTiles<D>;
+  constexpr int RB = Tl::RB;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* dos = qs + Tl::QB_BYTES;
+  uint8_t* ks = dos + Tl::QB_BYTES;                  // [STAGES][64 x D]
+  uint8_t* vs = ks + BW_STAGES * Tl::KT_BYTES;       // [STAGES][64 x D]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + BW_STAGES * Tl::KT_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + BW_STAGES;
+  uint64_t* empty = v_full + BW_STAGES;
+
+  // heaviest first, as the forward
+  const int nq = (Sq + BQ_BQ - 1) / BQ_BQ;
+  const int HB = H * B;
+  const int qblk = causal ? nq - 1 - static_cast<int>(blockIdx.x) / HB
+                          : static_cast<int>(blockIdx.x) / HB;
+  const int h = static_cast<int>(blockIdx.x) % HB % H;
+  const int b = static_cast<int>(blockIdx.x) % HB / H;
+  const int kh = h / (H / K);
+  const int q0 = qblk * BQ_BQ;
+  const int k_end = causal ? min(Sk, q0 + BQ_BQ) : Sk;
+  const int ntiles = (k_end + BQ_BK - 1) / BQ_BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < BW_STAGES; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&empty[s], 256);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_arrive_expect_tx(q_full, 2 * Tl::QB_BYTES);
+#pragma unroll
+      for (int c = 0; c < Tl::NCH; ++c) {
+        hopper::tma_load_3d(qs + c * BQ_BQ * RB, &map_q, q_full,
+                            h * D + c * Tl::CH, q0, b);
+        hopper::tma_load_3d(dos + c * BQ_BQ * RB, &map_do, q_full,
+                            h * D + c * Tl::CH, q0, b);
+      }
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % BW_STAGES;
+        if (t >= BW_STAGES)
+          hopper::mbar_wait(&empty[s], (t / BW_STAGES - 1) & 1);
+        hopper::mbar_arrive_expect_tx(&k_full[s], Tl::KT_BYTES);
+#pragma unroll
+        for (int c = 0; c < Tl::NCH; ++c)
+          hopper::tma_load_3d(ks + s * Tl::KT_BYTES + c * BQ_BK * RB, &map_k,
+                              &k_full[s], kh * D + c * Tl::CH, t * BQ_BK, b);
+        hopper::mbar_arrive_expect_tx(&v_full[s], Tl::KT_BYTES);
+#pragma unroll
+        for (int c = 0; c < Tl::NCH; ++c)
+          hopper::tma_load_3d(vs + s * Tl::KT_BYTES + c * BQ_BK * RB, &map_v,
+                              &v_full[s], kh * D + c * Tl::CH, t * BQ_BK, b);
+      }
+    }
+  } else {
+    hopper::setmaxnreg_inc<240>();
+    const int cw = wg - 1;                 // this warpgroup's 64 rows
+    const int tid = threadIdx.x % 128;
+    const int w = tid / 32, l = tid % 32;
+    const int wg_q0 = q0 + cw * 64;
+    // this thread's two rows: row0 + 8 hh
+    const int row0 = wg_q0 + w * 16 + l / 4;
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = row0 + 8 * hh;
+      const size_t at = (static_cast<size_t>(b) * H + h) * Sq + r;
+      lse2[hh] = r < Sq ? lse[at] * kLog2e : INFINITY;
+      dl[hh] = r < Sq ? delta[at] : 0.f;
+    }
+    const uint8_t* qa = qs + cw * 64 * RB;
+    const uint8_t* da_ = dos + cw * 64 * RB;
+    float dq_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+
+    hopper::mbar_wait(q_full, 0);
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % BW_STAGES;
+      const uint32_t parity = (t / BW_STAGES) & 1;
+      const int k0 = t * BQ_BK;
+      const uint8_t* kt = ks + s * Tl::KT_BYTES;
+      const uint8_t* vt = vs + s * Tl::KT_BYTES;
+      hopper::mbar_wait(&k_full[s], parity);
+      if (!causal || k0 <= wg_q0 + 63) {
+        float sc[32];   // S, then P: sc[4 j + 2 hh + e] is row row0 + 8 hh,
+                        // key k0 + 8 j + 2 (l % 4) + e
+        hopper::wgmma_fence();
+        product_abt<D>(sc, qa, BQ_BQ, kt);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(sc);
+        const bool edge = k0 + BQ_BK > Sk || (causal && k0 + BQ_BK - 1 > wg_q0);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float& x = sc[4 * j + 2 * hh + e];
+              x = exp2f(fmaf(x, scale_log2, -lse2[hh]));
+              const int kp = k0 + 8 * j + 2 * (l % 4) + e;
+              if (edge && (kp >= Sk || (causal && kp > row0 + 8 * hh)))
+                x = 0.f;
+            }
+        hopper::mbar_wait(&v_full[s], parity);
+        float dp[32];
+        hopper::wgmma_fence();
+        product_abt<D>(dp, da_, BQ_BQ, vt);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dp);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = 4 * j + 2 * hh + e;
+              dp[i] = sc[i] * (dp[i] - dl[hh]) * scale;
+            }
+        uint32_t dsa[4][4];
+        to_operand(dp, dsa);
+        hopper::fence_regs(dq_acc);
+        hopper::wgmma_fence();
+        product_ab<D>(dq_acc, dsa, kt);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dq_acc);
+      } else {
+        hopper::mbar_wait(&v_full[s], parity);   // the stage must be whole
+      }
+      hopper::mbar_arrive(&empty[s]);
+    }
+    store_rows<D>(dq + (static_cast<size_t>(b) * Sq * H + h) * D,
+                  static_cast<size_t>(H) * D, dq_acc, row0, Sq, l);
+  }
+}
+
+// a map of a [B, S, heads * D] bf16 tensor whose box is `rows` positions
+// of one column chunk
+template <int D>
+int rows_map(CUtensorMap* map, const void* base, int B, int S, int heads,
+             int rows) {
+  const uint64_t dims[3] = {static_cast<uint64_t>(heads) * D,
+                            static_cast<uint64_t>(S), static_cast<uint64_t>(B)};
+  const uint64_t strides[2] = {static_cast<uint64_t>(heads) * D * 2,
+                               static_cast<uint64_t>(S) * heads * D * 2};
+  const uint32_t box[3] = {BwdTiles<D>::CH, static_cast<uint32_t>(rows), 1};
+  return hopper::encode_bf16_map(map, base, 3, dims, strides, box,
+                                 BwdTiles<D>::RB);
+}
+
+template <int D>
+int launch_bwd(const void* q, const void* k, const void* v, const void* out,
+               const void* dout, const float* lse, float* delta, void* dq,
+               void* dk, void* dv, int B, int Sq, int Sk, int H, int K,
+               int causal, float scale, cudaStream_t stream) {
+  using Tl = BwdTiles<D>;
+  const long long rows = static_cast<long long>(B) * Sq * H;
+  const long long kv_blocks =
+      static_cast<long long>((Sk + BW_BK - 1) / BW_BK) * K * B;
+  const long long q_blocks =
+      static_cast<long long>((Sq + BQ_BQ - 1) / BQ_BQ) * H * B;
+  if ((rows + 7) / 8 > 0x7fffffffLL || kv_blocks > 0x7fffffffLL ||
+      q_blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap m[8];   // k, v, q, dO for dK/dV; q, dO, k, v for dQ
+  int err = rows_map<D>(&m[0], k, B, Sk, K, BW_BK);
+  if (err == 0) err = rows_map<D>(&m[1], v, B, Sk, K, BW_BK);
+  if (err == 0) err = rows_map<D>(&m[2], q, B, Sq, H, BW_BQ);
+  if (err == 0) err = rows_map<D>(&m[3], dout, B, Sq, H, BW_BQ);
+  if (err == 0) err = rows_map<D>(&m[4], q, B, Sq, H, BQ_BQ);
+  if (err == 0) err = rows_map<D>(&m[5], dout, B, Sq, H, BQ_BQ);
+  if (err == 0) err = rows_map<D>(&m[6], k, B, Sk, K, BQ_BK);
+  if (err == 0) err = rows_map<D>(&m[7], v, B, Sk, K, BQ_BK);
+  if (err != 0) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_bwd_dkdv_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Tl::KV_SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Tl::Q_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const float scale_log2 = scale * kLog2e;
+  flash_attention_bwd_delta_kernel<D>
+      <<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
+          static_cast<const __nv_bfloat16*>(out),
+          static_cast<const __nv_bfloat16*>(dout), delta, B, Sq, H);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_attention_bwd_dkdv_kernel<D>
+      <<<static_cast<unsigned>(kv_blocks), KV_THREADS, Tl::KV_SMEM, stream>>>(
+          m[0], m[1], m[2], m[3], lse, delta,
+          static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B,
+          Sq, Sk, H, K, causal, scale, scale_log2);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_attention_bwd_dq_kernel<D>
+      <<<static_cast<unsigned>(q_blocks), W_THREADS, Tl::Q_SMEM, stream>>>(
+          m[4], m[5], m[6], m[7], lse, delta,
+          static_cast<__nv_bfloat16*>(dq), B, Sq, Sk, H, K, causal, scale,
+          scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------------ ffma
 
 // Stages positions [p0, p0 + rows) of one head of a [S, heads, D] operand
 // (`src` at position 0, `stride` floats a position) into a tile of row
@@ -824,17 +1411,37 @@ bool tma_ready(const void* p) {
 
 // the bf16 wgmma variant: with keys, q, k and v start on 16 bytes
 int launch_bf16_wgmma(const void* q, const void* k, const void* v, void* out,
-                      int B, int Sq, int Sk, int H, int K, int D, int causal,
-                      float scale, void* stream) {
+                      float* lse, int B, int Sq, int Sk, int H, int K, int D,
+                      int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Sk <= 0) return zeros(out, B, Sq, H, D, sizeof(__nv_bfloat16), s);
   if (!tma_ready(q) || !tma_ready(k) || !tma_ready(v))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
-    case 16: return launch_wgmma<16>(q, k, v, out, B, Sq, Sk, H, K, causal, scale, s);
-    case 32: return launch_wgmma<32>(q, k, v, out, B, Sq, Sk, H, K, causal, scale, s);
-    case 64: return launch_wgmma<64>(q, k, v, out, B, Sq, Sk, H, K, causal, scale, s);
-    case 128: return launch_wgmma<128>(q, k, v, out, B, Sq, Sk, H, K, causal, scale, s);
+    case 16: return launch_wgmma<16>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, scale, s);
+    case 32: return launch_wgmma<32>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, scale, s);
+    case 64: return launch_wgmma<64>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, scale, s);
+    case 128: return launch_wgmma<128>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// the bf16 backward: D 64 or 128, Sq and Sk > 0, q, k, v and dO on 16
+// bytes
+int launch_bf16_bwd(const void* q, const void* k, const void* v,
+                    const void* out, const void* dout, const void* lse,
+                    void* delta, void* dq, void* dk, void* dv, int B, int Sq,
+                    int Sk, int H, int K, int D, int causal, float scale,
+                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Sq <= 0 || Sk <= 0 || !tma_ready(q) || !tma_ready(k) ||
+      !tma_ready(v) || !tma_ready(dout))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* l = static_cast<const float*>(lse);
+  float* d = static_cast<float*>(delta);
+  switch (D) {
+    case 64: return launch_bwd<64>(q, k, v, out, dout, l, d, dq, dk, dv, B, Sq, Sk, H, K, causal, scale, s);
+    case 128: return launch_bwd<128>(q, k, v, out, dout, l, d, dq, dk, dv, B, Sq, Sk, H, K, causal, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -851,7 +1458,13 @@ int launch_bf16_wgmma(const void* q, const void* k, const void* v, void* out,
 // scratch of F_SPLITS * B * Sq * H * (D + 2) floats, and the tile (bq, bk),
 // refusing one outside its set with cudaErrorInvalidValue.
 // flash_attention_bf16 is the wgmma variant (its 128 x 128 tile is fixed)
-// and, with Sk > 0, needs 16-byte aligned q, k and v.
+// and, with Sk > 0, needs 16-byte aligned q, k and v; a non-null `lse`
+// (float32 [B, H, Sq]) also takes each row's log-sum-exp of the scaled
+// scores (not written when Sk == 0).  flash_attention_bf16_bwd is its
+// backward (three launches): from q, k, v, out, dout (bf16, dout [B, Sq,
+// H, D]) and lse it writes delta (float32 [B, H, Sq], scratch) and bf16
+// dq, dk and dv shaped as q, k and v; head sizes 64 and 128, Sq and Sk >
+// 0, q, k, v and dout on 16 bytes.
 extern "C" {
 
 int flash_attention_f32_ffma(const void* q, const void* k, const void* v,
@@ -863,10 +1476,20 @@ int flash_attention_f32_ffma(const void* q, const void* k, const void* v,
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v,
-                         void* out, int B, int Sq, int Sk, int H, int K,
-                         int D, int causal, float scale, void* stream) {
-  return launch_bf16_wgmma(q, k, v, out, B, Sq, Sk, H, K, D, causal, scale,
-                           stream);
+                         void* out, void* lse, int B, int Sq, int Sk, int H,
+                         int K, int D, int causal, float scale,
+                         void* stream) {
+  return launch_bf16_wgmma(q, k, v, out, static_cast<float*>(lse), B, Sq, Sk,
+                           H, K, D, causal, scale, stream);
+}
+
+int flash_attention_bf16_bwd(const void* q, const void* k, const void* v,
+                             const void* out, const void* dout,
+                             const void* lse, void* delta, void* dq, void* dk,
+                             void* dv, int B, int Sq, int Sk, int H, int K,
+                             int D, int causal, float scale, void* stream) {
+  return launch_bf16_bwd(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq,
+                         Sk, H, K, D, causal, scale, stream);
 }
 
 // Dynamic shared memory a block of the ffma tile takes at head size D, or

@@ -19,6 +19,16 @@ counts; the kernel masks ragged sequence edges instead).  The ``wgmma``
 variant's 128 x 128 tile is fixed: no family tunes it, and a ``bq`` or
 ``bk`` given for a bfloat16 call raises.  The plain version ignores the
 tile.
+
+The models' attention (``models.layers._flash_fwd_scan`` and
+``_flash_bwd_scan``) runs on the bf16 kernels where
+:func:`takes_kernels` says so: :func:`attention_fwd`, the ``wgmma``
+variant writing each row's log-sum-exp too, and :func:`attention_bwd`,
+its GQA-native, deterministic backward (a delta pass, a dK/dV kernel and
+a dQ kernel).  Both are operators registered with
+``torch.library.Library`` (CUDA, CPU and Meta kernels); a CPU tensor
+takes their plain versions in ``ref.py`` (:func:`flash_fwd_lse_ref`,
+:func:`flash_bwd_ref`), the kernels' algorithm tile by tile.
 """
 import ctypes
 import math
@@ -28,15 +38,22 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build, tuning
-from .ref import flash_attention_ref
+from .ref import flash_attention_ref, flash_bwd_ref, flash_fwd_lse_ref
 
 #: Kernel launches made by this process (read by ``chip_smoke.py``),
-#: in all and by variant.
+#: in all and by variant: the forward's two, and the backward's three
+#: kernels (each of its calls launches all three).
 launches = 0
-launches_by_variant = {"wgmma": 0, "ffma": 0}
+launches_by_variant = {"wgmma": 0, "ffma": 0, "bwd_delta": 0, "bwd_dkdv": 0,
+                       "bwd_dq": 0}
+#: The backward's kernels, by ``launches_by_variant`` key.
+BWD_VARIANTS = ("bwd_delta", "bwd_dkdv", "bwd_dq")
 
 #: Head sizes the kernel is instantiated for.
 HEAD_DIMS = (16, 32, 64, 128)
+#: Head sizes the bf16 backward is instantiated for: the models'
+#: attention takes the kernels at these alone.
+TRAIN_HEAD_DIMS = (64, 128)
 #: Grid limit of the head and batch axes (gridDim.y and .z).
 _MAX_GRID_YZ = 65535
 _INT_MAX = 2 ** 31 - 1
@@ -56,8 +73,10 @@ _SYMBOLS = {("ffma", torch.float32): "flash_attention_f32_ffma",
 _SIGNATURES = {
     "flash_attention_f32_ffma": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
     + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p],
-    "flash_attention_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    "flash_attention_bf16": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_void_p],
+    "flash_attention_bf16_bwd": [ctypes.c_void_p] * 10
+    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
     "flash_attention_smem_bytes": [ctypes.c_int] * 3,
     "shared_memory_optin": _build.SMEM_OPTIN_SIGNATURE}
 _MEMO = tuning.Memo()
@@ -129,7 +148,8 @@ def _launch(q, k, v, causal: bool, bq: int, bk: int) -> torch.Tensor:
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = getattr(lib, _SYMBOLS[which, q.dtype])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            *(t.data_ptr() for t in scratch), B, Sq, Sk, H, K, D,
+            *(t.data_ptr() for t in scratch),
+            *((None,) if which == "wgmma" else ()), B, Sq, Sk, H, K, D,
             int(causal), 1.0 / math.sqrt(D),
             *((bq, bk) if which == "ffma" else ()), stream)
     _build.check(lib, code, "flash_attention")
@@ -211,3 +231,168 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if which == "ffma":
         tuning.note("flash_attention", dev, which, cfg)
     return _flash_attention(q, k, v, bool(causal), cfg["bq"], cfg["bk"])
+
+
+# ---------------------------------------------------------------------------
+# the models' attention: the forward with its log-sum-exp, and the backward
+# ---------------------------------------------------------------------------
+
+
+def kernels_fit(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool) -> bool:
+    """Whether the kernels (:func:`attention_fwd`, :func:`attention_bwd`)
+    compute attention over operands of these types and shapes: bfloat16,
+    a head size in :data:`TRAIN_HEAD_DIMS`, queries and keys, and under
+    the causal mask as many queries as keys: the kernels' mask is
+    top-left (``k_pos <= q_pos``) and the scans' bottom-right, which
+    agree only there."""
+    return (q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and q.shape[-1] in TRAIN_HEAD_DIMS
+            and q.shape[1] > 0 and k.shape[1] > 0
+            and (not causal or q.shape[1] == k.shape[1]))
+
+
+def takes_kernels(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool) -> bool:
+    """Whether the models' attention over these operands runs on the
+    kernels: CUDA tensors that :func:`kernels_fit`.  A trace's fake CUDA
+    tensors (the dry run's) take the same branch, through the operators'
+    Meta kernels, so a traced step holds what the card runs."""
+    return q.is_cuda and kernels_fit(q, k, v, causal)
+
+
+def _ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and on 16 bytes (the kernels' TMA loads), copied
+    where it is not."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _fwd_lse_cuda(q, k, v, causal, need_lse):
+    global launches
+    q, k, v = _ready(q), _ready(k), _ready(v)
+    B, Sq, H, D = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq) if need_lse else (0,), dtype=torch.float32,
+                      device=q.device)
+    lib = _build.load("flash_attention", _SIGNATURES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.flash_attention_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if need_lse else None, B, Sq, k.shape[1], H,
+            k.shape[2], D, int(causal), 1.0 / math.sqrt(D), stream)
+    _build.check(lib, code, "flash_attention_fwd_lse")
+    launches += 1
+    launches_by_variant["wgmma"] += 1
+    return out, lse
+
+
+def _fwd_lse_cpu(q, k, v, causal, need_lse):
+    out, lse = flash_fwd_lse_ref(q, k, v, causal)
+    return out, lse if need_lse else lse.new_empty((0,))
+
+
+def _fwd_lse_meta(q, k, v, causal, need_lse):
+    B, Sq, H, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((B, H, Sq) if need_lse else (0,),
+                        dtype=torch.float32))
+
+
+def _bwd_cuda(q, k, v, out, lse, dout, causal):
+    global launches
+    q, k, v, out, dout = (_ready(t) for t in (q, k, v, out, dout))
+    lse = lse.contiguous()
+    B, Sq, H, D = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    lib = _build.load("flash_attention", _SIGNATURES)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.flash_attention_bf16_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, Sq, k.shape[1], H, k.shape[2],
+            D, int(causal), 1.0 / math.sqrt(D), stream)
+    _build.check(lib, code, "flash_attention_bwd")
+    launches += len(BWD_VARIANTS)
+    for name in BWD_VARIANTS:
+        launches_by_variant[name] += 1
+    return dq, dk, dv
+
+
+def _bwd_cpu(q, k, v, out, lse, dout, causal):
+    return flash_bwd_ref(q, k, v, out, lse, dout, causal)
+
+
+def _bwd_meta(q, k, v, out, lse, dout, causal):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_attention_fwd_lse(Tensor q, Tensor k, Tensor v, "
+            "bool causal, bool need_lse) -> (Tensor, Tensor)")
+_LIB.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor out, "
+            "Tensor lse, Tensor dout, bool causal) "
+            "-> (Tensor, Tensor, Tensor)")
+_LIB.impl("flash_attention_fwd_lse", _fwd_lse_cuda, "CUDA")
+_LIB.impl("flash_attention_fwd_lse", _fwd_lse_cpu, "CPU")
+_LIB.impl("flash_attention_fwd_lse", _fwd_lse_meta, "Meta")
+_LIB.impl("flash_attention_bwd", _bwd_cuda, "CUDA")
+_LIB.impl("flash_attention_bwd", _bwd_cpu, "CPU")
+_LIB.impl("flash_attention_bwd", _bwd_meta, "Meta")
+
+
+def kept_pairs(Sq: int, Sk: int, causal: bool) -> int:
+    """The (query, key) pairs attention weighs: every one, or under the
+    kernels' causal mask (``k_pos <= q_pos``) those on or below the
+    diagonal."""
+    if not causal:
+        return Sq * Sk
+    n = min(Sq, Sk)
+    return n * (n + 1) // 2 + (Sq - n) * Sk
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd_lse)
+def _fwd_lse_flops(q_shape, k_shape, v_shape, causal, need_lse, *,
+                   out_shape=None, **kwargs) -> int:
+    """The forward's own work: two products (scores and P·V) a kept
+    pair, 4·B·H·D·pairs."""
+    B, Sq, H, D = q_shape
+    return 4 * B * H * D * kept_pairs(Sq, k_shape[1], causal)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _bwd_flops(q_shape, k_shape, v_shape, out_shape_, lse_shape,
+               dout_shape, causal, *, out_shape=None, **kwargs) -> int:
+    """The backward's own work: five products a kept pair (S, dP, dV, dK,
+    dQ) and delta's row sums, 10·B·H·D·pairs + 2·B·Sq·H·D.  The dQ
+    kernel's second S and dP, the price of summing with no atomics, are
+    not the function's work and are not counted."""
+    B, Sq, H, D = q_shape
+    return 10 * B * H * D * kept_pairs(Sq, k_shape[1], causal) + \
+        2 * B * Sq * H * D
+
+
+def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, need_lse: bool
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(out ``[B, Sq, H, D]`` in q's type, lse float32 ``[B, H, Sq]`` or
+    None without ``need_lse``) for operands :func:`takes_kernels` takes,
+    or CPU tensors (the plain version)."""
+    out, lse = torch.ops.repro_torch.flash_attention_fwd_lse(
+        q, k, v, bool(causal), bool(need_lse))
+    return out, lse if need_lse else None
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                  causal: bool
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) shaped and typed as q, k and v, from the forward's
+    ``out`` and ``lse`` (:func:`attention_fwd`) and the output's
+    gradient ``dout``."""
+    return torch.ops.repro_torch.flash_attention_bwd(
+        q, k, v, out, lse, dout, bool(causal))

@@ -3,7 +3,8 @@
 The forward path of the model zoo: norms (:func:`rms_norm`,
 :func:`layer_norm`), rotary embeddings with M-RoPE, GQA attention
 (:func:`naive_attention`, the oracle, and :func:`flash_attention_xla`,
-the chunked online-softmax formulation with a recompute backward), the
+the chunked online-softmax formulation with a recompute backward, which
+on the card takes the hand-written flash kernels for bf16), the
 SwiGLU/GELU MLP, capacity-based MoE (scatter dispatch and the one-hot
 einsum oracle, with shared experts; the expert-parallel
 :func:`moe_shard_map` under a mesh) and the dropless :func:`moe_held`
@@ -357,18 +358,42 @@ def _causal_mask(i, j, cq, ck, Sq, Sk, device) -> torch.Tensor:
     return k_pos <= q_pos
 
 
+def _flash_kernels():
+    """The flash kernels' wrapper, imported at the call: it imports this
+    module."""
+    from repro_torch.kernels.flash_attention import ops
+    return ops
+
+
 @traced_source
-def _flash_fwd_scan(q, kr, vr, causal, cq, ck, causal_skip):
-    """Online softmax over chunk pairs.  q [B,Sq,H,D]; kr/vr [B,Sk,H,D].
+def _flash_fwd_scan(q, k, v, causal, cq, ck, causal_skip, need_lse=True):
+    """Online softmax over chunk pairs.  q [B,Sq,H,D]; k/v [B,Sk,K,D].
 
-    Off-diagonal pairs run first without a mask, then the diagonal
-    pairs with it, as in the reference.  The softmax scale is folded
-    into q once, in q's dtype.  ``p`` is cast to v's dtype before the
-    PV product, as the reference feeds bfloat16 p to the MXU.
+    Where the operands show the card's bf16 kernels can take them
+    (``kernels.flash_attention.ops.takes_kernels``: CUDA bf16, head size
+    64 or 128, Sq == Sk under the causal mask) the ``wgmma`` kernel runs
+    instead, GQA-native, and returns (out in q's dtype, lse or None
+    without ``need_lse``); counter ``flash.kernel`` reads 1, else 0.
 
-    Returns (out float32 [B,Sq,H,D], lse [B,H,Sq]).
+    Otherwise the plain scan, :func:`_flash_fwd_plain`.
     """
+    kernels = _flash_kernels()
+    if kernels.takes_kernels(q, k, v, causal):
+        tracing.count("flash.kernel", 1)
+        return kernels.attention_fwd(q, k, v, causal, need_lse)
+    tracing.count("flash.kernel", 0)
+    return _flash_fwd_plain(q, k, v, causal, cq, ck, causal_skip)
+
+
+def _flash_fwd_plain(q, k, v, causal, cq, ck, causal_skip):
+    """The plain scan over ``repeat_kv``'d k and v: off-diagonal pairs
+    run first without a mask, then the diagonal pairs with it, as in the
+    reference.  The softmax scale is folded into q once, in q's dtype.
+    ``p`` is cast to v's dtype before the PV product, as the reference
+    feeds bfloat16 p to the MXU.  Returns (out float32 [B,Sq,H,D], lse
+    [B,H,Sq])."""
     B, Sq, H, D = q.shape
+    kr, vr = repeat_kv(k, H), repeat_kv(v, H)
     Sk = kr.shape[1]
     qs = q * _scalar(1.0 / math.sqrt(D), q)
     m = torch.full((B, H, Sq), _NEG_INF, dtype=torch.float32,
@@ -412,16 +437,32 @@ def _flash_fwd_scan(q, kr, vr, causal, cq, ck, causal_skip):
     return out, lse
 
 
-def _flash_fwd(q, k, v, causal, cq, ck, causal_skip):
-    H = q.shape[2]
-    kr, vr = repeat_kv(k, H), repeat_kv(v, H)
-    out, lse = _flash_fwd_scan(q, kr, vr, causal, cq, ck, causal_skip)
+def _flash_fwd(q, k, v, causal, cq, ck, causal_skip, need_lse=True):
+    out, lse = _flash_fwd_scan(q, k, v, causal, cq, ck, causal_skip,
+                               need_lse)
     return out.to(q.dtype), lse
 
 
 @traced_source
 def _flash_bwd_scan(q, k, v, out, lse, dout, causal, cq, ck, causal_skip):
-    """Recompute-based flash backward (no saved per-pair history)."""
+    """Recompute-based flash backward (no saved per-pair history).
+
+    Dispatched as :func:`_flash_fwd_scan`: on the card's bf16 kernels
+    (a delta pass, then dK/dV and dQ kernels with no atomics; counter
+    ``flash.kernel`` 1), else the plain scan :func:`_flash_bwd_plain`
+    (0)."""
+    kernels = _flash_kernels()
+    if kernels.takes_kernels(q, k, v, causal):
+        tracing.count("flash.kernel", 1)
+        return kernels.attention_bwd(q, k, v, out, lse, dout, causal)
+    tracing.count("flash.kernel", 0)
+    return _flash_bwd_plain(q, k, v, out, lse, dout, causal, cq, ck,
+                            causal_skip)
+
+
+def _flash_bwd_plain(q, k, v, out, lse, dout, causal, cq, ck, causal_skip):
+    """The plain scan's backward over ``repeat_kv``'d k and v, its
+    gradients folded back to the kv heads."""
     B, Sq, H, D = q.shape
     kr, vr = repeat_kv(k, H), repeat_kv(v, H)
     Sk = kr.shape[1]
@@ -474,8 +515,9 @@ class _FlashAttention(torch.autograd.Function):
     lse); the backward recomputes each chunk pair's scores."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, cq, ck, causal_skip):
-        out, lse = _flash_fwd(q, k, v, causal, cq, ck, causal_skip)
+    def forward(ctx, q, k, v, causal, cq, ck, causal_skip, need_lse):
+        out, lse = _flash_fwd(q, k, v, causal, cq, ck, causal_skip,
+                              need_lse)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.schedule = (causal, cq, ck, causal_skip)
         return out
@@ -485,7 +527,7 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _flash_bwd_scan(q, k, v, out, lse, dout.contiguous(),
                                      *ctx.schedule)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -502,16 +544,27 @@ def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``causal_skip`` schedules only lower-triangular chunk pairs.  The
     causal mask is bottom-right aligned (``k_pos <= q_pos + Sk - Sq``),
     which agrees with :func:`naive_attention` when ``Sq == Sk``.
+
+    On the card, bfloat16 operands with a head size of 64 or 128 (and
+    ``Sq == Sk`` under the causal mask) take the hand-written kernels
+    instead, forward and backward (:func:`_flash_fwd_scan`); the forward
+    then writes the log-sum-exp only when a gradient will be taken.
+    ``chunk_q``, ``chunk_k`` and ``causal_skip`` steer the plain scans
+    alone (the kernels' tiles are their own), and every other input
+    (CPU tensors, float32, other head sizes) takes those scans.
     """
     Sq, Sk = q.shape[1], k.shape[1]
     cq, ck = min(chunk_q, Sq), min(chunk_k, Sk)
     if Sq % cq or Sk % ck:
         raise ValueError(f"flash_attention_xla: chunks ({cq}, {ck}) do not "
                          f"divide the sequence lengths ({Sq}, {Sk})")
+    need_lse = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
     if sharded(q):
         return heads_local(lambda q_, k_, v_: _FlashAttention.apply(
-            q_, k_, v_, causal, cq, ck, causal_skip), q, k, v)
-    return _FlashAttention.apply(q, k, v, causal, cq, ck, causal_skip)
+            q_, k_, v_, causal, cq, ck, causal_skip, need_lse), q, k, v)
+    return _FlashAttention.apply(q, k, v, causal, cq, ck, causal_skip,
+                                 need_lse)
 
 
 def heads_local(fn: Callable, q: torch.Tensor, k: torch.Tensor,

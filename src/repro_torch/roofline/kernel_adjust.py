@@ -20,7 +20,11 @@ contribution is ANALYTIC:
 The reference finds the pair scan's traffic as the HLO ``while`` bodies
 whose trip counts equal the pair schedule's lengths; the port finds the
 graph nodes traced inside the two scan functions (their
-``traced_source`` tag).  Both numbers are reported; the substitution is
+``traced_source`` tag).  On fake CUDA tensors in bf16 the two functions
+trace the kernels' operators instead (as the card runs them,
+``kernels.flash_attention.ops.takes_kernels``): their nodes carry the
+kernels' own FLOPs, and their operand bytes are substituted the same
+way.  Both numbers are reported; the substitution is
 exact in FLOPs (same products) and conservative in bytes.
 """
 from __future__ import annotations

@@ -1362,3 +1362,143 @@ def test_sharded_save_on_a_one_rank_nccl_group(cuda):
     """A DTensor tree saved from a one-rank NCCL group and restored, on
     the host and on the mesh, bit-equal."""
     _one_rank_nccl("ckpt")
+
+
+# --- the models' attention on the kernels: forward with lse, backward ---
+
+#: The train kernels against the plain scans and ``ref.py``: ``ref.TOL``,
+#: one table with the CPU tests and chip_smoke.py, each output's largest
+#: gap in a row (a query of a head, a key of a kv head) as a share of the
+#: row's size (``ref.row_gap``) and lse's absolute gap; its reasons are
+#: in ``ref.py``.  Each side runs its backward on its own forward's out
+#: and lse, so a fault of the forward's lse shows in the gradients too.
+
+
+def _train_operands(B, S, H, K, D, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(s, generator=gen).to(device, torch.bfloat16)
+                 for s in ((B, S, H, D), (B, S, K, D), (B, S, K, D),
+                           (B, S, H, D)))
+
+
+# (B, S, H, K, D): G = H / K of 1, 2 and 4 at head sizes 64 and 128, S
+# from 128 to 4096, and the train cells' layers: internlm2-1.8b (B4, 16
+# over 8 of 128) and granite-4.0-h-small (B8, 32 over 8 of 128)
+_TRAIN_SHAPES = [(1, 128, 2, 2, 64), (2, 384, 4, 2, 64), (2, 1024, 8, 2, 64),
+                 (1, 4096, 32, 8, 64), (1, 128, 4, 4, 128),
+                 (2, 384, 8, 4, 128), (4, 1024, 16, 4, 128),
+                 (4, 4096, 16, 8, 128), (8, 4096, 32, 8, 128)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,K,D", _TRAIN_SHAPES)
+def test_flash_train_kernels_match_the_scans(cuda, B, S, H, K, D, causal):
+    """The forward's out and lse against ``_flash_fwd_plain``, the
+    backward's dq, dk, dv against ``_flash_bwd_plain`` (the scans the
+    models ran before), one launch forward and three backward."""
+    from repro_torch.models import layers as L
+    q, k, v, do = _train_operands(B, S, H, K, D, cuda)
+    assert flash_ops.takes_kernels(q, k, v, causal)
+    from repro_torch.kernels.flash_attention import ref
+    c = min(S, 512)
+    before = dict(flash_ops.launches_by_variant)
+    got = dict(zip(("out", "lse"),
+                   flash_ops.attention_fwd(q, k, v, causal, True)))
+    got.update(zip(("dq", "dk", "dv"), flash_ops.attention_bwd(
+        q, k, v, got["out"], got["lse"], do, causal)))
+    torch.cuda.synchronize()
+    ran = {n: flash_ops.launches_by_variant[n] - before[n] for n in before}
+    assert ran == {"wgmma": 1, "ffma": 0, "bwd_delta": 1, "bwd_dkdv": 1,
+                   "bwd_dq": 1}
+    p_out, p_lse = L._flash_fwd_plain(q, k, v, causal, c, c, True)
+    want = {"out": p_out.to(q.dtype), "lse": p_lse}
+    del p_out
+    want.update(zip(("dq", "dk", "dv"), L._flash_bwd_plain(
+        q, k, v, want["out"], p_lse, do, causal, c, c, True)))
+    for n in ("dq", "dk", "dv"):
+        assert got[n].dtype == torch.bfloat16
+        assert got[n].shape == want[n].shape
+    gaps = ref.gaps(got, want)
+    assert ref.over(gaps) == {}, gaps
+
+
+@pytest.mark.parametrize("B,S,H,K,D,causal", [
+    (1, 1000, 4, 1, 64, True), (2, 300, 8, 2, 128, True),
+    (1, 200, 4, 4, 128, False), (2, 333, 8, 2, 64, False),
+    (1, 70, 4, 2, 64, False)])
+def test_flash_train_kernels_match_ref_at_ragged_lengths(cuda, B, S, H, K,
+                                                         D, causal):
+    """Lengths no tile divides (the scans take none): the kernels
+    against ``ref.py``, the same algorithm in PyTorch, and the
+    forward-only call's output equal to the forward with lse."""
+    from repro_torch.kernels.flash_attention import ref
+    q, k, v, do = _train_operands(B, S, H, K, D, cuda, seed=1)
+    got = dict(zip(("out", "lse"),
+                   flash_ops.attention_fwd(q, k, v, causal, True)))
+    got.update(zip(("dq", "dk", "dv"), flash_ops.attention_bwd(
+        q, k, v, got["out"], got["lse"], do, causal)))
+    want = dict(zip(("out", "lse"), ref.flash_fwd_lse_ref(q, k, v, causal)))
+    want.update(zip(("dq", "dk", "dv"), ref.flash_bwd_ref(
+        q, k, v, want["out"], want["lse"], do, causal)))
+    gaps = ref.gaps(got, want)
+    assert ref.over(gaps) == {}, gaps
+    assert torch.equal(got["out"], flash_attention(q, k, v, causal=causal))
+
+
+def test_flash_train_kernels_rerun_bit_for_bit(cuda):
+    """No atomics: a rerun of the forward and the backward reads the
+    same bits (training's same-seed reruns rely on it)."""
+    q, k, v, do = _train_operands(4, 4096, 16, 8, 128, cuda, seed=2)
+    runs = []
+    for _ in range(2):
+        out, lse = flash_ops.attention_fwd(q, k, v, True, True)
+        runs.append((out, lse, *flash_ops.attention_bwd(
+            q, k, v, out, lse, do, True)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_flash_train_forward_without_grad_writes_no_lse(cuda):
+    """Prefill (no grad) takes the kernel with no lse; a call that will
+    be differentiated asks for it."""
+    from repro_torch.models import layers as L
+    q, k, v, _ = _train_operands(1, 256, 4, 2, 128, cuda)
+    with torch.no_grad():
+        assert L._flash_fwd(q, k, v, True, 128, 128, True, False)[1] is None
+        out = L.flash_attention_xla(q, k, v, chunk_q=128, chunk_k=128)
+    assert torch.equal(out, flash_attention(q, k, v))
+    assert L._flash_fwd(q, k, v, True, 128, 128, True)[1].shape == \
+        (1, 4, 256)
+
+
+def test_flash_train_step_on_the_kernels_against_the_scans(cuda,
+                                                           monkeypatch):
+    """A two-layer internlm2-1.8b (its widths: 16 heads over 8 of 128)
+    bf16 loss and gradients, B2 x S2048: the kernels against the scans
+    (``takes_kernels`` patched false), one forward and three backward
+    launches a layer.  Both paths round P and dS to bf16 and differ by
+    that rounding's noise carried through two layers: the loss within
+    1e-3 of itself, each gradient leaf within 3e-2 of its norm."""
+    import dataclasses
+    from repro_torch.models import build, get_config, tree
+    from repro_torch.train.step import _grad_fn
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"), num_layers=2)
+    api = build(cfg)
+    params = api.init(torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator().manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 2048),
+                                     generator=gen).to(cuda)}
+    grad_fn = _grad_fn(api)
+    before = dict(flash_ops.launches_by_variant)
+    (loss_k, _), grads_k = grad_fn(params, batch)
+    torch.cuda.synchronize()
+    ran = {n: flash_ops.launches_by_variant[n] - before[n] for n in before}
+    assert ran == {"wgmma": 2, "ffma": 0, "bwd_delta": 2, "bwd_dkdv": 2,
+                   "bwd_dq": 2}
+    monkeypatch.setattr(flash_ops, "takes_kernels", lambda *a: False)
+    (loss_s, _), grads_s = grad_fn(params, batch)
+    assert flash_ops.launches_by_variant["wgmma"] == before["wgmma"] + 2
+    gap = abs(loss_k.item() - loss_s.item()) / abs(loss_s.item())
+    gaps = [((a.float() - b.float()).norm() / b.float().norm()).item()
+            for a, b in zip(tree.flatten(grads_k), tree.flatten(grads_s))]
+    assert gap <= 1e-3, (gap, max(gaps))
+    assert max(gaps) <= 3e-2, gaps
